@@ -1,0 +1,38 @@
+"""newtonkrylov_tpu_torch — the PyTorch/CUDA port of newtonkrylov_tpu.
+
+A Jacobian-free Newton–Krylov solver for PyTorch tensors on an NVIDIA H100
+(or the CPU).  The JAX package ``newtonkrylov_tpu`` is the reference it is
+held against; module names and array layouts follow it.  Ported so far: the
+2-D Bratu main path — :func:`newton_krylov_jit` with plain PCG, the
+Eisenstat–Walker forcing, df32 acceptance residuals, the DST-Poisson
+preconditioner, and the aligned-layout residual whose matvec runs the
+hand-written CUDA stencil kernels of :mod:`.kernels.stencil2d`.
+
+This package imports ``torch`` and never ``jax``.
+"""
+
+from . import df32, fftprec, kernels, mg, problems, solvers
+from .forcing import EisenstatWalker, Fixed, Forcing
+from .newton import NewtonInfo, Stats, newton_krylov_jit
+from .operator import JacobianOperator, LinearOperator
+from .spaces import EuclideanSpace, MaskedSpace, VectorSpace
+
+__all__ = [
+    "newton_krylov_jit",
+    "NewtonInfo",
+    "Stats",
+    "Forcing",
+    "Fixed",
+    "EisenstatWalker",
+    "JacobianOperator",
+    "LinearOperator",
+    "VectorSpace",
+    "EuclideanSpace",
+    "MaskedSpace",
+    "df32",
+    "fftprec",
+    "kernels",
+    "mg",
+    "problems",
+    "solvers",
+]

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels and solves on the card (tests marked ``cuda``).
+
+These tests skip where ``torch.cuda.is_available()`` is false.  The file
+imports neither JAX nor the JAX package, so it also runs on a machine with a
+card and no JAX, where ``tests/conftest.py`` (which imports JAX) is left
+out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+import newtonkrylov_tpu_torch as nkt
+from newtonkrylov_tpu_torch import df32
+from newtonkrylov_tpu_torch.fftprec import fft_poisson
+from newtonkrylov_tpu_torch.kernels import stencil2d as tk
+from newtonkrylov_tpu_torch.problems import bratu2d as tb
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(n, device, dtype, gen, absval=False):
+    x = torch.randn((n, n), generator=gen, device=device, dtype=dtype)
+    return tk.aligned_wrap(x.abs() + 0.1 if absval else x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [64, 512])
+def test_kernels_match_plain(cuda_device, dtype, n):
+    """K1 bitwise equal to its plain version on the interior, K2 within 4 ulp,
+    ghosts exactly 0, and each launch counted once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    v, w, u = (_rand(n, cuda_device, dtype, gen, absval=a) for a in (False, True, False))
+    interior = tk.aligned_mask(n, torch.bool, cuda_device)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[dtype]
+    tk.reset_launch_counts()
+    got = tk.stencil_jvp(v, w, n)
+    ref = tk.stencil_jvp_xla(v, w, n)
+    assert torch.equal(got.view(ints)[interior], ref.view(ints)[interior])
+    assert bool((got[~interior] == 0).all())
+    scale = 5.0 / (n + 1) ** 2
+    got2 = tk.bratu_residual(u, n, scale)
+    ref2 = tk.bratu_residual_xla(u, n, scale)
+    bound = 4 * torch.finfo(dtype).eps * (ref2.abs() + scale * torch.exp(u))
+    assert bool(((got2 - ref2).abs() <= bound)[interior].all())
+    assert bool((got2[~interior] == 0).all())
+    assert tk.LAUNCHES == {"stencil_jvp": 1, "bratu_residual": 1}
+
+
+def test_kernels_reject_bad_inputs(cuda_device):
+    n = 64
+    v = tk.aligned_wrap(torch.zeros((n, n), device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        tk.stencil_jvp(v[:-8], v[:-8], n)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.bratu_residual(v.half(), n, 1.0)
+    with pytest.raises(ValueError, match="one device|dtype"):
+        tk.stencil_jvp(v, v.cpu(), n)
+
+
+@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual"])
+def test_custom_op_registration_on_card(cuda_device, op):
+    n = 64
+    v = tk.aligned_wrap(torch.randn((n, n), device=cuda_device))
+    args = (v, v.abs(), n) if op == "stencil_jvp" else (v, n, 1e-3)
+    result = torch.library.opcheck(getattr(tk, op), args)
+    assert set(result.values()) == {"SUCCESS"}
+
+
+def test_df32_selfcheck_on_card(cuda_device):
+    assert df32.selfcheck(cuda_device)
+
+
+def test_aligned_solve_on_card_matches_cpu(cuda_device):
+    """The aligned f64 solve through K1/K2 takes the CPU solve's iterations
+    and reaches its solution; K1 runs at least once per inner iteration."""
+    n = 64
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        u0, p, space = tb.aligned_setup(n, lam=5.0, dtype=torch.float64, device=dev)
+        tk.reset_launch_counts()
+        runs[str(dev)] = nkt.newton_krylov_jit(tb.residual_scaled_aligned, u0, p,
+                                               algo="cg", space=space)
+        runs[str(dev) + "-launches"] = dict(tk.LAUNCHES)
+    (uc, ic), (ug, ig) = runs["cpu"], runs[str(cuda_device)]
+    assert bool(ic.solved) and bool(ig.solved)
+    assert ig.stats.outer_iterations == ic.stats.outer_iterations
+    assert ig.stats.inner_iterations == ic.stats.inner_iterations
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+    launches = runs[str(cuda_device) + "-launches"]
+    assert launches["stencil_jvp"] >= ig.stats.inner_iterations
+    assert launches["bratu_residual"] > 0
+    assert runs["cpu-launches"] == {"stencil_jvp": 0, "bratu_residual": 0}
+
+
+def test_flagship_solve_on_card(cuda_device):
+    """entry()'s configuration at 256² on the card: solved, f64 true
+    residual within 1e-8·‖F₀‖."""
+    n = 256
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device)
+    u, info = nkt.newton_krylov_jit(
+        tb.residual_scaled, u0.to(torch.float64), p, algo="cg", tol_rel=1e-8,
+        krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+        max_niter=20, M=fft_poisson(precision="high"), precond_refresh="once")
+    assert bool(info.solved)
+    f0 = float(torch.linalg.vector_norm(tb.residual_scaled(u0.to(torch.float64), p)))
+    fu = float(torch.linalg.vector_norm(tb.residual_scaled(u, p)))
+    assert fu <= 1e-8 * f0 + 1e-12

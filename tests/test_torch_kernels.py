@@ -1,0 +1,165 @@
+"""The port's stencil kernels (K1 stencil_jvp, K2 bratu_residual) against the
+JAX package's Pallas kernels, which run here in interpret mode as in
+tests/test_kernels.py.
+
+On the CPU each custom op runs its plain PyTorch version, so these tests hold
+the plain versions (and the op dispatch around them) against the Pallas
+kernels, in float64 with atol 1e-12 as the JAX kernel tests use.  The CUDA
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from newtonkrylov_tpu.kernels import stencil2d as jk
+from newtonkrylov_tpu.problems import bratu2d as jb
+from newtonkrylov_tpu_torch.kernels import stencil2d as tk
+from newtonkrylov_tpu_torch.problems import bratu2d as tb
+from newtonkrylov_tpu_torch.utils import convert
+
+F64 = torch.float64
+
+
+def _rand(n, seed, absval=False, shift=0.0):
+    a = np.random.default_rng(seed).standard_normal((n, n))
+    return (np.abs(a) if absval else a) + shift
+
+
+def _wrap_both(a):
+    """The same interior in the aligned layout: (jax array, torch tensor)."""
+    return jk.aligned_wrap(jnp.asarray(a)), tk.aligned_wrap(convert.state(a, device="cpu"))
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_layout_helpers_match_jax(n):
+    assert tk.round_up(n + 2, 128) == jk.round_up(n + 2, 128)
+    vj, vt = _wrap_both(_rand(n, 0))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(tk.aligned_interior(vt, n).numpy(),
+                                  np.asarray(jk.aligned_interior(vj, n)))
+    np.testing.assert_array_equal(tk.aligned_mask(n, F64).numpy(),
+                                  np.asarray(jk.aligned_mask(n, jnp.float64)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tk.aligned_mask(n + 4)
+
+
+@pytest.mark.parametrize("n,T", [(16, 256), (32, 256), (64, 256), (64, 16)],
+                         ids=["n16", "n32", "n64", "n64-T16-multitile"])
+def test_stencil_jvp_matches_pallas(n, T):
+    vj, vt = _wrap_both(_rand(n, 1))
+    wj, wt = _wrap_both(_rand(n, 2, absval=True, shift=0.1))
+    ref = np.asarray(jk.stencil_jvp_pallas(vj, wj, n, T=T))
+    np.testing.assert_allclose(tk.stencil_jvp(vt, wt, n).numpy(), ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tk.stencil_jvp_xla(vt, wt, n).numpy(),
+                               np.asarray(jk.stencil_jvp_xla(vj, wj, n)), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,T", [(16, 256), (32, 8), (64, 256), (64, 16)],
+                         ids=["n16", "n32-T8", "n64", "n64-T16-multitile"])
+def test_bratu_residual_matches_pallas(n, T):
+    scale = 5.0 / (n + 1) ** 2
+    uj, ut = _wrap_both(_rand(n, 3))
+    ref = np.asarray(jk.bratu_residual_pallas(uj, n, scale, T=T))
+    np.testing.assert_allclose(tk.bratu_residual(ut, n, scale).numpy(), ref,
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [16, 32])
+def test_ghost_invariant(n):
+    """Both ops return a valid ghost-carrying array: apron and ghost
+    columns exactly zero."""
+    _, vt = _wrap_both(_rand(n, 4))
+    _, wt = _wrap_both(_rand(n, 5, absval=True))
+    for out in (tk.stencil_jvp(vt, wt, n), tk.bratu_residual(vt, n, 1e-3)):
+        out = out.numpy()
+        assert np.all(out[n:, :] == 0)
+        assert np.all(out[:, 0] == 0)
+        assert np.all(out[:, n + 1:] == 0)
+
+
+def test_aligned_residual_forward_matches_jax():
+    n = 32
+    pj = jb.default_config(n, lam=4.0)
+    uj, ut = _wrap_both(0.5 * _rand(n, 6))
+    np.testing.assert_allclose(
+        tb.residual_scaled_aligned(ut, convert.params(pj)).numpy(),
+        np.asarray(jb.residual_scaled_aligned(uj, pj)), rtol=0, atol=1e-12)
+
+
+def test_aligned_residual_custom_jvp_consistent():
+    """The JVP through the aligned residual (K1 path) matches JAX's aligned
+    custom JVP and the plain residual's JVP on the interior (the check of
+    tests/test_kernels.py:89-103, held against the JAX package)."""
+    n = 16
+    pj = jb.default_config(n, lam=4.0)
+    pt = convert.params(pj)
+    u0i = np.asarray(jb.initial_guess(n))
+    vi = _rand(n, 7)
+    uj, ut = _wrap_both(u0i)
+    vj, vt = _wrap_both(vi)
+    _, jv_j = jax.jvp(lambda u: jb.residual_scaled_aligned(u, pj), (uj,), (vj,))
+    _, jv_t = torch.func.jvp(lambda u: tb.residual_scaled_aligned(u, pt), (ut,), (vt,))
+    np.testing.assert_allclose(jv_t.numpy(), np.asarray(jv_j), rtol=0, atol=1e-12)
+    _, jv_plain = torch.func.jvp(lambda u: tb.residual_scaled(u, pt),
+                                 (convert.state(u0i, device="cpu"),),
+                                 (convert.state(vi, device="cpu"),))
+    np.testing.assert_allclose(tk.aligned_interior(jv_t, n).numpy(), jv_plain.numpy(),
+                               rtol=0, atol=1e-10)
+    # and the linearized replay the solvers use gives the same matvec
+    from newtonkrylov_tpu_torch import JacobianOperator
+
+    J = JacobianOperator(tb.residual_scaled_aligned, ut, pt)
+    np.testing.assert_allclose(J.mv(vt).numpy(), jv_t.numpy(), rtol=0, atol=1e-13)
+
+
+def test_no_launch_counted_on_cpu():
+    """CPU tensors take the plain versions: no kernel launches are counted."""
+    n = 16
+    tk.reset_launch_counts()
+    _, vt = _wrap_both(_rand(n, 8))
+    tk.stencil_jvp(vt, vt, n)
+    tk.bratu_residual(vt, n, 1e-3)
+    from newtonkrylov_tpu_torch import JacobianOperator
+
+    JacobianOperator(tb.residual_scaled_aligned, vt, tb.default_config(n, 4.0)).mv(vt)
+    assert tk.LAUNCHES == {"stencil_jvp": 0, "bratu_residual": 0}
+
+
+@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual"])
+def test_custom_op_registration(op):
+    """Schema, fake (meta) implementation and tracing of each custom op pass
+    torch.library.opcheck — what torch.func.linearize relies on."""
+    n = 16
+    _, vt = _wrap_both(_rand(n, 9))
+    args = (vt, vt.abs(), n) if op == "stencil_jvp" else (vt, n, 1e-3)
+    result = torch.library.opcheck(getattr(tk, op), args)
+    assert set(result.values()) == {"SUCCESS"}
+
+
+def test_build_names_library_by_source_digest_and_needs_nvcc(monkeypatch, tmp_path):
+    from newtonkrylov_tpu_torch.kernels import build
+
+    path = build.library_path("stencil2d")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("libstencil2d-")
+    root = Path(__file__).resolve().parents[1]
+    assert "newtonkrylov_tpu_torch/_build/" in (root / ".gitignore").read_text()
+    # without nvcc the first use fails with a clear error, before any launch
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("stencil2d")
+
+
+def test_ops_reject_other_devices():
+    n = 16
+    v = torch.zeros((n + 8, 128), dtype=F64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tk._on_cpu(v)
