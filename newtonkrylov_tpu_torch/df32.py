@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .tree import tree_map, tree_norm
+from .utils import default_device
 
 __all__ = [
     "DF", "two_sum", "fast_two_sum", "two_prod",
@@ -228,8 +229,9 @@ def scaled_exp(a: DF, c: float) -> DF:
     return out if cf > 0 else neg(out)
 
 
-def selfcheck(device="cpu") -> bool:
-    """True iff ``device`` preserves the error-free transforms.
+def selfcheck(device=None) -> bool:
+    """True iff ``device`` (by default the card) preserves the error-free
+    transforms.
 
     Runs the known-dangerous pattern (two products sharing a factor, summed
     by two_sum) on ``device`` and compares the value against a strict
@@ -241,7 +243,7 @@ def selfcheck(device="cpu") -> bool:
     c1 = np.float32(0.00118305636)
     c2 = np.float32(0.00118305636 - float(c1))
     xn = np.linspace(1.0, 4.0, 64, dtype=np.float32)
-    x = torch.from_numpy(xn).to(device)
+    x = torch.from_numpy(xn).to(device or default_device())
     s, e = two_sum(x * float(c1), x * float(c2))
     a = (xn * c1).astype(np.float32).astype(np.float64)
     b = (xn * c2).astype(np.float32).astype(np.float64)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .mg import probe_5point
+from .utils import default_device
 
 __all__ = ["dst1", "idst1", "fft_poisson", "dst_poisson_solver", "sine_basis"]
 
@@ -137,13 +138,15 @@ def _sine_basis_np(n: int):
     return out
 
 
-def sine_basis(n: int, dtype=torch.float32, device="cpu"):
+def sine_basis(n: int, dtype=torch.float32, device=None):
     """Symmetric DST-I basis matrix S, S_{kj} = sin(π(k+1)(j+1)/(n+1)).
 
     S = Sᵀ and S·S = (n+1)/2·I, so the inverse transform is S scaled by
-    2/(n+1).  Built on the host in f64, then rounded to ``dtype`` once.
+    2/(n+1).  Built on the host in f64, then rounded to ``dtype`` once, on
+    ``device`` (by default the card).
     """
-    return torch.tensor(_sine_basis_np(n), dtype=dtype, device=device)
+    return torch.tensor(_sine_basis_np(n), dtype=dtype,
+                        device=device or default_device())
 
 
 def fft_poisson(shift: str = "mean", method: str = "auto",

@@ -25,6 +25,7 @@ from .. import df32 as dd
 from ..kernels import stencil2d as k
 from ..ops.stencil import laplacian_2d, pad_dirichlet
 from ..spaces import MaskedSpace
+from ..utils import default_device
 
 __all__ = [
     "Params",
@@ -52,15 +53,16 @@ def default_config(n: int = N_DEFAULT, lam: float = LAMBDA_DEFAULT) -> Params:
     return Params(dx=1.0 / (n + 1), lam=lam)
 
 
-def grid(n: int = N_DEFAULT, dtype=torch.float64, device="cpu"):
-    """(X, Y) interior coordinates, ``indexing="ij"``."""
+def grid(n: int = N_DEFAULT, dtype=torch.float64, device=None):
+    """(X, Y) interior coordinates, ``indexing="ij"``, on ``device`` (by
+    default the card)."""
     dx = 1.0 / (n + 1)
-    x = torch.from_numpy(np.linspace(dx, 1.0 - dx, n)).to(device=device,
-                                                          dtype=dtype)
+    x = torch.from_numpy(np.linspace(dx, 1.0 - dx, n)).to(
+        device=device or default_device(), dtype=dtype)
     return torch.meshgrid(x, x, indexing="ij")
 
 
-def initial_guess(n: int = N_DEFAULT, dtype=torch.float64, device="cpu"):
+def initial_guess(n: int = N_DEFAULT, dtype=torch.float64, device=None):
     """sin-bump u₀ = sin(πx)sin(πy)."""
     X, Y = grid(n, dtype, device)
     return torch.sin(math.pi * X) * torch.sin(math.pi * Y)
@@ -128,9 +130,11 @@ def residual_scaled_aligned(u, p: Params):
 
 
 def aligned_setup(n: int = N_DEFAULT, lam: float = LAMBDA_DEFAULT,
-                  dtype=torch.float32, device="cpu"):
-    """(u0_aligned, params, space) for the kernel path; the MaskedSpace
-    restricts every solver reduction to the interior."""
+                  dtype=torch.float32, device=None):
+    """(u0_aligned, params, space) for the kernel path, on ``device`` (by
+    default the card); the MaskedSpace restricts every solver reduction to
+    the interior."""
+    device = device or default_device()
     p = default_config(n, lam)
     u0 = k.aligned_wrap(initial_guess(n, dtype, device))
     space = MaskedSpace(k.aligned_mask(n, dtype, device))

@@ -21,8 +21,11 @@ import newtonkrylov_tpu_torch.forcing as tforcing
 import newtonkrylov_tpu_torch.spaces as tspaces
 import newtonkrylov_tpu_torch.tree as ttree
 from newtonkrylov_tpu.problems import bratu2d as jb
+from newtonkrylov_tpu_torch import df32 as tdf32
+from newtonkrylov_tpu_torch import fftprec as tfft
 from newtonkrylov_tpu_torch import solvers as tsolvers
 from newtonkrylov_tpu_torch.df32 import DF
+from newtonkrylov_tpu_torch.kernels import stencil2d as tk
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
 from newtonkrylov_tpu_torch.utils import convert
 
@@ -233,3 +236,30 @@ def test_solve_dispatch():
         tsolvers.solve("qmr", lambda v: v, _t(b))
     with pytest.raises(NotImplementedError, match="pipelined"):
         tsolvers.cg(lambda v: v, _t(b), pipeline=True)
+
+
+# -- default device ---------------------------------------------------------
+
+_ENTRY_POINTS = {  # name -> call without a device, returning the tensors made
+    "grid": lambda: list(tb.grid(8)),
+    "initial_guess": lambda: [tb.initial_guess(8)],
+    "aligned_setup": lambda: [(s := tb.aligned_setup(8))[0], s[2].mask],
+    "aligned_mask": lambda: [tk.aligned_mask(8)],
+    "sine_basis": lambda: [tfft.sine_basis(8)],
+    "selfcheck": lambda: tdf32.selfcheck(),
+}
+
+
+@pytest.mark.parametrize("name", list(_ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Called without a device, each entry point creates its tensors on CUDA;
+    where there is no CUDA it raises as PyTorch does, with no CPU fallback."""
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            _ENTRY_POINTS[name]()
+        return
+    out = _ENTRY_POINTS[name]()
+    if name == "selfcheck":  # ran its transforms on the card
+        assert out is True
+    else:
+        assert out and all(t.device.type == "cuda" for t in out)

@@ -15,6 +15,8 @@ import newtonkrylov_tpu_torch as nkt
 from newtonkrylov_tpu_torch import df32
 from newtonkrylov_tpu_torch.fftprec import fft_poisson
 from newtonkrylov_tpu_torch.kernels import stencil2d as tk
+from newtonkrylov_tpu_torch.mg import probe_5point
+from newtonkrylov_tpu_torch.precond import _cheb_bounds, chebyshev
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
 
 pytestmark = pytest.mark.cuda
@@ -53,7 +55,8 @@ def test_kernels_match_plain(cuda_device, dtype, n):
     bound = 4 * torch.finfo(dtype).eps * (ref2.abs() + scale * torch.exp(u))
     assert bool(((got2 - ref2).abs() <= bound)[interior].all())
     assert bool((got2[~interior] == 0).all())
-    assert tk.LAUNCHES == {"stencil_jvp": 1, "bratu_residual": 1}
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0),
+                           "stencil_jvp": 1, "bratu_residual": 1}
 
 
 def test_kernels_reject_bad_inputs(cuda_device):
@@ -99,7 +102,7 @@ def test_aligned_solve_on_card_matches_cpu(cuda_device):
     launches = runs[str(cuda_device) + "-launches"]
     assert launches["stencil_jvp"] >= ig.stats.inner_iterations
     assert launches["bratu_residual"] > 0
-    assert runs["cpu-launches"] == {"stencil_jvp": 0, "bratu_residual": 0}
+    assert runs["cpu-launches"] == dict.fromkeys(tk.LAUNCHES, 0)
 
 
 def test_flagship_solve_on_card(cuda_device):
@@ -113,6 +116,71 @@ def test_flagship_solve_on_card(cuda_device):
         krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
         max_niter=20, M=fft_poisson(precision="high"), precond_refresh="once")
     assert bool(info.solved)
+    f0 = float(torch.linalg.vector_norm(tb.residual_scaled(u0.to(torch.float64), p)))
+    fu = float(torch.linalg.vector_norm(tb.residual_scaled(u, p)))
+    assert fu <= 1e-8 * f0 + 1e-12
+
+
+def _bitwise(a, b):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [64, 512])
+def test_chain_kernels_match_plain(cuda_device, dtype, n):
+    """K3, K5 and K4 (on the probed interval of a Bratu Jacobian) bitwise
+    equal to their plain versions, one launch per call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    v, w = (_rand(n, cuda_device, dtype, gen, absval=a) for a in (False, True))
+    J = nkt.JacobianOperator(tb.residual_scaled,
+                             tb.initial_guess(n, dtype, cuda_device),
+                             tb.default_config(n, 5.0))
+    o, d = probe_5point(J)
+    theta, delta = _cheb_bounds(o, d.min(), d.max(), None, 1 / 300, dtype)
+    diag, scal = tk.aligned_wrap(d / o), torch.stack([theta, delta, o])
+    tk.reset_launch_counts()
+    for k in (1, 2, 7, 40):
+        assert _bitwise(tk.stencil_jvp_chain(v, w, n, k, 0.125),
+                        tk.stencil_jvp_chain_xla(v, w, n, k, 0.125))
+    for k in (2, 40):
+        assert _bitwise(tk.stencil_chain_probe(v, w, n, k),
+                        tk.stencil_chain_probe_xla(v, w, n, k))
+    for degree in (1, 4, 16):
+        assert _bitwise(tk.chebyshev_apply(v, diag, scal, n, degree),
+                        tk.chebyshev_apply_xla(v, diag, scal, n, degree))
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0), "stencil_jvp_chain": 4,
+                           "stencil_chain_probe": 2, "chebyshev_apply": 3}
+
+
+def test_chain_kernels_reject_bad_inputs(cuda_device):
+    n = 64
+    v = tk.aligned_wrap(torch.zeros((n, n), device=cuda_device))
+    scal = torch.ones(3, device=cuda_device)
+    with pytest.raises(ValueError, match="even"):
+        tk.stencil_chain_probe(v, v, n, 3)
+    with pytest.raises(ValueError, match="shape"):
+        tk.stencil_jvp_chain(v[:-8], v[:-8], n, 2)
+    with pytest.raises(ValueError, match="scal"):
+        tk.chebyshev_apply(v, v, scal.double(), n, 2)
+    with pytest.raises(ValueError, match="scal"):
+        tk.chebyshev_apply(v, v, scal[:2], n, 2)
+
+
+def test_cheb_pcg_solve_on_card(cuda_device):
+    """The Cheb-PCG lane's configuration at 256² on the card: every
+    preconditioner apply is one K4 launch; solved, f64 true residual within
+    1e-8·‖F₀‖."""
+    n = 256
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device)
+    tk.reset_launch_counts()
+    u, info = nkt.newton_krylov_jit(
+        tb.residual_scaled, u0.to(torch.float64), p, algo="cg", tol_rel=1e-8,
+        krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+        max_niter=20, M=chebyshev(16, lo_frac=1 / 300), precond_refresh="once")
+    assert bool(info.solved)
+    assert tk.LAUNCHES["chebyshev_apply"] >= info.stats.inner_iterations
     f0 = float(torch.linalg.vector_norm(tb.residual_scaled(u0.to(torch.float64), p)))
     fu = float(torch.linalg.vector_norm(tb.residual_scaled(u, p)))
     assert fu <= 1e-8 * f0 + 1e-12

@@ -43,10 +43,10 @@ def test_layout_helpers_match_jax(n):
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_array_equal(tk.aligned_interior(vt, n).numpy(),
                                   np.asarray(jk.aligned_interior(vj, n)))
-    np.testing.assert_array_equal(tk.aligned_mask(n, F64).numpy(),
+    np.testing.assert_array_equal(tk.aligned_mask(n, F64, device="cpu").numpy(),
                                   np.asarray(jk.aligned_mask(n, jnp.float64)))
     with pytest.raises(ValueError, match="multiple of 8"):
-        tk.aligned_mask(n + 4)
+        tk.aligned_mask(n + 4, device="cpu")
 
 
 @pytest.mark.parametrize("n,T", [(16, 256), (32, 256), (64, 256), (64, 16)],
@@ -128,7 +128,12 @@ def test_no_launch_counted_on_cpu():
     from newtonkrylov_tpu_torch import JacobianOperator
 
     JacobianOperator(tb.residual_scaled_aligned, vt, tb.default_config(n, 4.0)).mv(vt)
-    assert tk.LAUNCHES == {"stencil_jvp": 0, "bratu_residual": 0}
+    tk.stencil_jvp_chain(vt, vt, n, 3, 0.125)
+    tk.stencil_chain_probe(vt, vt, n, 2)
+    tk.chebyshev_apply(vt, vt, torch.tensor([-4.0, 3.0, 1.0], dtype=F64), n, 2)
+    assert tk.LAUNCHES == dict.fromkeys(
+        ["stencil_jvp", "bratu_residual", "stencil_jvp_chain",
+         "stencil_chain_probe", "chebyshev_apply"], 0)
 
 
 @pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual"])
@@ -163,3 +168,81 @@ def test_ops_reject_other_devices():
     v = torch.zeros((n + 8, 128), dtype=F64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tk._on_cpu(v)
+
+
+# -- the chained kernels K3, K4, K5 -------------------------------------------
+#
+# Tolerances: float64 rtol 1e-12 with atol 1e-12·max|ref|; float32 within 4
+# ulp of max|ref|.  The port's plain versions round every operation in IEEE
+# order (numpy's evaluation of the same expression agrees with them bit for
+# bit); XLA:CPU contracts multiply-adds into FMAs, so the Pallas kernels in
+# interpret mode differ in the last bits (ROADMAP.md Queue 3).
+
+def _assert_close(got, ref, dtype):
+    ref = np.asarray(ref)
+    scale = float(np.abs(ref).max())
+    if dtype == F64:
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12 * scale)
+    else:
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=4 * np.finfo(np.float32).eps * scale)
+
+
+def _wrap_both_as(a, dtype):
+    return _wrap_both(a.astype({F64: np.float64, torch.float32: np.float32}[dtype]))
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("n", [16, 32])
+def test_stencil_jvp_chain_matches_pallas(n, k, dtype):
+    vj, vt = _wrap_both_as(_rand(n, 10), dtype)
+    wj, wt = _wrap_both_as(_rand(n, 11, absval=True, shift=0.1), dtype)
+    ref = jk.stencil_jvp_chain_pallas(vj, wj, n, k, 0.125)
+    got = tk.stencil_jvp_chain(vt, wt, n, k, 0.125)
+    assert got.dtype == dtype
+    _assert_close(got, ref, dtype)
+    assert float(got[n:].abs().max()) == float(got[:, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_stencil_chain_probe_matches_pallas(k, dtype):
+    n = 16
+    vj, vt = _wrap_both_as(_rand(n, 12), dtype)
+    wj, wt = _wrap_both_as(_rand(n, 13, absval=True, shift=0.1), dtype)
+    _assert_close(tk.stencil_chain_probe(vt, wt, n, k),
+                  jk.stencil_chain_probe_pallas(vj, wj, n, k), dtype)
+
+
+def test_stencil_chain_probe_rejects_odd_k():
+    n = 16
+    _, vt = _wrap_both(_rand(n, 14))
+    for fn in (tk.stencil_chain_probe, tk.stencil_chain_probe_xla):
+        with pytest.raises(ValueError, match="even"):
+            fn(vt, vt, n, 3)
+    with pytest.raises(ValueError, match="degree"):
+        tk.chebyshev_apply(vt, vt, torch.zeros(3, dtype=F64), n, -1)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("degree", [1, 4, 7])
+def test_chebyshev_apply_matches_pallas(degree, dtype):
+    """K4 on the probed interval of a Bratu Jacobian: diag = d/o with
+    d = Δx²λeᵘ − 4, o = 1, and (θ, δ) from the JAX package's _cheb_bounds."""
+    from newtonkrylov_tpu.precond import _cheb_bounds
+
+    n = 16
+    npdt = {F64: np.float64, torch.float32: np.float32}[dtype]
+    p = jb.default_config(n, lam=5.0)
+    d = (p.dx * p.dx * p.lam * np.exp(np.asarray(jb.initial_guess(n))) - 4.0).astype(npdt)
+    o = npdt(1.0)
+    theta, delta = _cheb_bounds(jnp.asarray(o), jnp.asarray(d.min()), jnp.asarray(d.max()),
+                                None, 1.0 / 30.0, jnp.dtype(npdt))
+    rj, rt = _wrap_both_as(_rand(n, 15), dtype)
+    dj, dt_ = _wrap_both_as(d / o, dtype)
+    ref = jk.chebyshev_apply_pallas(rj, dj, theta, delta, o, n, degree)
+    scal = torch.tensor(np.array([theta, delta, o], dtype=npdt))
+    got = tk.chebyshev_apply(rt, dt_, scal, n, degree)
+    assert got.dtype == dtype
+    _assert_close(got, ref, dtype)

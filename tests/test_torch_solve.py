@@ -58,7 +58,7 @@ def test_aligned_solve_f64_matches_jax():
     u0j, pj, sj = jb.aligned_setup(n, lam=4.0, dtype=jnp.float64)
     uj, ij = nk.newton_krylov_jit(
         lambda u, pp: jb.residual_scaled_aligned(u, pp), u0j, pj, algo="cg", space=sj)
-    u0t, pt, st = tb.aligned_setup(n, lam=4.0, dtype=F64)
+    u0t, pt, st = tb.aligned_setup(n, lam=4.0, dtype=F64, device="cpu")
     np.testing.assert_allclose(u0t.numpy(), np.asarray(u0j), rtol=0, atol=1e-15)
     ut, it = nkt.newton_krylov_jit(tb.residual_scaled_aligned, _t(u0j), pt,
                                    algo="cg", space=st)
@@ -76,9 +76,10 @@ def test_aligned_solve_matches_plain_layout():
     """The aligned configuration and the plain-layout residual converge to
     the same solution (tests/test_kernels.py:106 within the port)."""
     n = 32
-    u0a, pa, sa = tb.aligned_setup(n, lam=4.0, dtype=F64)
+    u0a, pa, sa = tb.aligned_setup(n, lam=4.0, dtype=F64, device="cpu")
     ua, ia = nkt.newton_krylov_jit(tb.residual_scaled_aligned, u0a, pa, algo="cg", space=sa)
-    us, is_ = nkt.newton_krylov_jit(tb.residual_scaled, tb.initial_guess(n, F64),
+    us, is_ = nkt.newton_krylov_jit(tb.residual_scaled,
+                                    tb.initial_guess(n, F64, device="cpu"),
                                     tb.default_config(n, 4.0), algo="cg")
     assert bool(ia.solved) and bool(is_.solved)
     np.testing.assert_allclose(tk.aligned_interior(ua, n).numpy(), us.numpy(),
@@ -90,7 +91,7 @@ def test_aligned_mixed_precision_refinement():
     below the f32 floor."""
     n = 64
     u0j, pj, sj = jb.aligned_setup(n, lam=5.0, dtype=jnp.float64)
-    u0t, pt, st = tb.aligned_setup(n, lam=5.0, dtype=F64)
+    u0t, pt, st = tb.aligned_setup(n, lam=5.0, dtype=F64, device="cpu")
     ut, it = nkt.newton_krylov_jit(tb.residual_scaled_aligned, _t(u0j), pt, algo="cg",
                                    tol_rel=1e-10, space=st, krylov_dtype=F32)
     assert bool(it.solved)
