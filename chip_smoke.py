@@ -23,8 +23,9 @@ Phases (each raises on failure; the script exits non-zero after any):
    flagship solve at 2048² (f32 Krylov, df32 acceptance residual,
    DST-Poisson preconditioner built once);
 6. the chain lane: ``bench.py``'s matvec lane at 2048² f32 — per-matvec
-   times of K3 and K5 by differencing chains of 200 and 2000 steps, beside
-   K1's per-call time on the same inputs;
+   times of K3 and K5 by differencing chains of 200 and 2000 steps (each
+   chain's output bitwise equal to its plain version), beside K1's per-call
+   time on the same inputs;
 7. the Cheb-PCG solve: the flagship configuration with
    ``chebyshev(16, lo_frac=1/300)`` in place of the DST preconditioner, at
    2048² (every preconditioner apply one K4 launch) and at 1024²;
@@ -57,9 +58,11 @@ CHEB_REF_1024 = (8, 377)  # outer/inner of the JAX package's Cheb-PCG lane
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
 # sheet, HBM3 bandwidth and float32 rate outside the tensor cores, at the
-# 700 W power limit.
+# 700 W power limit.  The sheet's 67 TFLOP/s counts a fused multiply-add as
+# two operations; the kernels build with -fmad=false, so every add and
+# multiply issues as an instruction of its own, at half that rate.
 H100_BYTES_PER_S = 3.35e12
-H100_F32_OPS_PER_S = 67e12
+H100_F32_OPS_PER_S = 67e12 / 2
 
 
 def log(msg: str) -> None:
@@ -426,8 +429,8 @@ def phase_flagship(torch, nkt, bratu2d, pass_name):
 
 def phase_cheb(torch, nkt, bratu2d, n, pass_name):
     """The Cheb-PCG lane of bench.py: the flagship with
-    ``chebyshev(16, lo_frac=1/300)``; on a CUDA f32 state of n ≥ 128 each
-    preconditioner apply is one K4 launch."""
+    ``chebyshev(16, lo_frac=1/300)``; on a CUDA state each preconditioner
+    apply is one K4 launch."""
     from newtonkrylov_tpu_torch.precond import chebyshev
 
     info = _df32_solve(torch, nkt, bratu2d, n, chebyshev(16, lo_frac=1 / 300),
@@ -444,7 +447,8 @@ def phase_chain_lane(torch, bratu2d):
     """bench.py's matvec lane at 2048² f32 with w = Δx²λ·eᵘ·mask: the
     per-matvec time of K3 (scale 0.125) and K5 by differencing chains of
     CHAIN steps (CUDA events, best of 4), beside K1's per-call time on the
-    same inputs."""
+    same inputs.  The last output of each timed chain is held bit for bit
+    against the plain version on the same inputs."""
     from newtonkrylov_tpu_torch.kernels import stencil2d as k
 
     dev = torch.device("cuda", 0)
@@ -454,6 +458,7 @@ def phase_chain_lane(torch, bratu2d):
         N, torch.float32, dev)
 
     def best_ms(fn, repeats=4):
+        """(best ms, last output) of ``repeats`` timed calls."""
         fn()
         torch.cuda.synchronize()
         times = []
@@ -465,17 +470,28 @@ def phase_chain_lane(torch, bratu2d):
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError("chain lane: non-finite output")
-        return min(times)
+        return min(times), out
 
     per_matvec = {}
-    for key, short, call in (
+    for key, short, call, plain in (
             ("stencil_jvp_chain", "K3",
-             lambda s: k.stencil_jvp_chain(va, wa, N, s, 0.125)),
+             lambda s: k.stencil_jvp_chain(va, wa, N, s, 0.125),
+             lambda s: k.stencil_jvp_chain_xla(va, wa, N, s, 0.125)),
             ("stencil_chain_probe", "K5",
-             lambda s: k.stencil_chain_probe(va, wa, N, s))):
-        t_short, t_long = (best_ms(lambda s=s: call(s)) for s in CHAIN)
+             lambda s: k.stencil_chain_probe(va, wa, N, s),
+             lambda s: k.stencil_chain_probe_xla(va, wa, N, s))):
+        times = []
+        for s in CHAIN:
+            t, out = best_ms(lambda s=s: call(s))
+            ref = plain(s)
+            if not (bool(torch.isfinite(out).all())
+                    and _bitwise_equal(torch, out, ref)):
+                raise AssertionError(f"chain lane: {short} k={s} not finite "
+                                     "or not bitwise equal to plain")
+            log(f"[chain lane] {short} k={s}: bitwise equal to plain, "
+                f"max|ref| {float(ref.abs().max()):.3e}")
+            times.append(t)
+        t_short, t_long = times
         per_matvec[key] = (t_long - t_short) / (CHAIN[1] - CHAIN[0])
         log(f"[chain lane] {short} {key}: {t_short:.4f} ms at k={CHAIN[0]}, "
             f"{t_long:.4f} ms at k={CHAIN[1]}: {per_matvec[key] * 1e3:.2f} "

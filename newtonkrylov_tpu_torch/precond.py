@@ -104,11 +104,16 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
       is the JAX package's; on a CPU tensor it runs the kernel's plain
       version);
     * ``"xla"`` — the plain recurrence over PyTorch ops;
-    * ``"auto"`` — the kernel for a square float32 CUDA state with
-      n ≥ 128 and n % 8 == 0, else the recurrence.
+    * ``"auto"`` — the kernel on a CUDA state, the recurrence on a CPU
+      state.
+
+    The kernel takes a square float32 or float64 state with n % 8 == 0 (the
+    aligned layout); any other state raises ``ValueError`` under
+    ``"pallas"``, and under ``"auto"`` on the card.
 
     ``bounds="lanczos"`` and ``axis_names`` are not ported yet and raise
-    ``NotImplementedError``; ``bc`` and ``lanczos_k`` belong to them.
+    ``NotImplementedError``, as do ``bc`` and ``lanczos_k`` set to anything
+    but their defaults: they only act on those two paths.
     """
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -116,6 +121,11 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
         raise NotImplementedError(
             "sharded Chebyshev preconditioning (axis_names=) is not ported "
             "yet (ROADMAP.md Queue 1, item 20)")
+    if bc != "dirichlet" or lanczos_k != 48:
+        raise NotImplementedError(
+            "chebyshev(bc=, lanczos_k=) act only on the Lanczos bounds and "
+            "the sharded form, which are not ported yet (ROADMAP.md Queue 1, "
+            "items 19 and 20)")
 
     def factory(J):
         o, d = probe_5point(J)
@@ -130,14 +140,13 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
 def _cheb_engine_apply(o, d, theta, delta, degree: int, engine: str) -> Callable:
     """Chebyshev p_degree(A) apply for A = o·S + d·I on interval (θ, δ)."""
     n, m = d.shape
-    use_kernel = engine == "pallas" or (
-        engine == "auto"
-        and d.device.type == "cuda"
-        and n == m and n % 8 == 0 and n >= 128
-        and d.dtype == torch.float32
-    )
-
-    if use_kernel:
+    if engine == "pallas" or (engine == "auto" and d.device.type == "cuda"):
+        if not (n == m and n % 8 == 0
+                and d.dtype in (torch.float32, torch.float64)):
+            raise ValueError(
+                "chebyshev: the K4 kernel takes a square float32 or float64 "
+                f"state with n % 8 == 0, got {tuple(d.shape)} {d.dtype}; "
+                'engine="xla" runs the plain recurrence')
         diag_al = K.aligned_wrap(d / o)
         # [θ, δ, o] stays on the device: the kernel reads it, no host sync
         scal = torch.stack([theta, delta, o])

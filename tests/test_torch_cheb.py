@@ -95,22 +95,40 @@ def test_cheb_linear_and_symmetric():
                                float(torch.vdot(M(r1).flatten(), r2.flatten())), rtol=1e-11)
 
 
-def test_cheb_auto_engine_picks_kernel_only_for_cuda_f32(monkeypatch):
-    """``engine="auto"`` runs the recurrence on a CPU state; ``"pallas"``
-    routes every apply through K4's op."""
+def _count_k4(monkeypatch):
     calls = []
     real = tp.K.chebyshev_apply
     monkeypatch.setattr(tp.K, "chebyshev_apply",
                         lambda *a: calls.append(a[3:]) or real(*a))
+    return calls
+
+
+def test_cheb_auto_engine_picks_kernel_only_for_cuda_f32(monkeypatch):
+    """``engine="auto"`` runs the recurrence on a CPU state, in f32 and f64;
+    ``"pallas"`` routes every apply through K4's op.  (On a CUDA state
+    ``"auto"`` runs K4 in f32 and f64 alike: tests/test_torch_cuda.py.)"""
+    calls = _count_k4(monkeypatch)
     n = 128
     p = tb.default_config(n, 5.0)
-    J = nkt.JacobianOperator(tb.residual_scaled,
-                             tb.initial_guess(n, torch.float32, device="cpu"), p)
-    r = torch.ones((n, n), dtype=torch.float32)
-    tp.chebyshev(4, engine="auto")(J)(r)
-    assert calls == []
+    for dt in (torch.float32, F64):
+        J = nkt.JacobianOperator(tb.residual_scaled,
+                                 tb.initial_guess(n, dt, device="cpu"), p)
+        r = torch.ones((n, n), dtype=dt)
+        tp.chebyshev(4, engine="auto")(J)(r)
+        assert calls == []
     tp.chebyshev(4, engine="pallas")(J)(r)
     assert calls == [(n, 4)]
+
+
+def test_cheb_auto_engine_recurrence_on_unaligned_cpu_state(monkeypatch):
+    """On the CPU, ``"auto"`` takes a state the aligned layout cannot
+    (n % 8 ≠ 0) through the recurrence, equal to the JAX XLA engine."""
+    calls = _count_k4(monkeypatch)
+    Jj, Jt = _jacobians(n=12)
+    r = np.random.default_rng(3).standard_normal((12, 12))
+    ref = jp.chebyshev(degree=5, engine="xla")(Jj)(jnp.asarray(r))
+    _assert_close(tp.chebyshev(degree=5, engine="auto")(Jt)(_t(r)), ref)
+    assert calls == []
 
 
 def test_chebyshev_rejects_unported_and_bad_options():
@@ -123,6 +141,23 @@ def test_chebyshev_rejects_unported_and_bad_options():
         tp.chebyshev(bounds="lanczos")(Jt)
     with pytest.raises(ValueError, match="bounds"):
         tp.chebyshev(bounds="gershgorin")(Jt)
+
+
+@pytest.mark.parametrize("option", [{"bc": "periodic"}, {"lanczos_k": 32}])
+def test_chebyshev_rejects_options_of_unported_paths(option):
+    """``bc`` and ``lanczos_k`` act only on the Lanczos bounds and the
+    sharded form; set away from their defaults they raise, not pass
+    silently."""
+    with pytest.raises(NotImplementedError, match="items 19 and 20"):
+        tp.chebyshev(**option)
+
+
+def test_cheb_kernel_engine_rejects_unaligned_state():
+    """``engine="pallas"`` on a state the aligned layout cannot take raises,
+    naming the plain engine."""
+    _, Jt = _jacobians(n=12)
+    with pytest.raises(ValueError, match='engine="xla"'):
+        tp.chebyshev(4, engine="pallas")(Jt)
 
 
 def test_newton_cheb_cg_counts_match_jax():

@@ -167,6 +167,34 @@ def test_chain_kernels_reject_bad_inputs(cuda_device):
         tk.chebyshev_apply(v, v, scal[:2], n, 2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cheb_auto_engine_launches_k4_on_card(cuda_device, dtype):
+    """``chebyshev(engine="auto")`` on a 64² CUDA state runs K4, one launch
+    per apply, bitwise equal to the kernel's plain version; a state the
+    aligned layout cannot take raises instead of running the recurrence."""
+    n = 64
+    J = nkt.JacobianOperator(tb.residual_scaled,
+                             tb.initial_guess(n, dtype, cuda_device),
+                             tb.default_config(n, 5.0))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    r = torch.randn((n, n), generator=gen, device=cuda_device, dtype=dtype)
+    M = chebyshev(16, lo_frac=1 / 300)(J)
+    tk.reset_launch_counts()
+    got = M(r)
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0), "chebyshev_apply": 1}
+    o, d = probe_5point(J)
+    theta, delta = _cheb_bounds(o, d.min(), d.max(), None, 1 / 300, dtype)
+    ref = tk.chebyshev_apply_xla(tk.aligned_wrap(r), tk.aligned_wrap(d / o),
+                                 torch.stack([theta, delta, o]), n, 16)
+    assert _bitwise(got, tk.aligned_interior(ref, n))
+    m = 60  # n % 8 ≠ 0
+    Jm = nkt.JacobianOperator(tb.residual_scaled,
+                              tb.initial_guess(m, dtype, cuda_device),
+                              tb.default_config(m, 5.0))
+    with pytest.raises(ValueError, match='engine="xla"'):
+        chebyshev(16)(Jm)
+
+
 def test_cheb_pcg_solve_on_card(cuda_device):
     """The Cheb-PCG lane's configuration at 256² on the card: every
     preconditioner apply is one K4 launch; solved, f64 true residual within
