@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 2-D Bratu paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
 Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``:
 
@@ -17,25 +17,38 @@ Phases (each raises on failure; the script exits non-zero after any):
    1, 4, 16, on the interval of a probed Bratu Jacobian) against their plain
    versions, bit for bit, at the same sizes, dtypes and seeded inputs, timed
    the same way;
-4. ``df32.selfcheck()`` on the card;
-5. the main path of the first slice: the aligned-layout solve at 2048² (f64
+4. the probe kernel K6 against its plain version, bit for bit: each of the
+   JAX probe's 20 variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed
+   per call;
+5. ``df32.selfcheck()`` on the card;
+6. the main path of the first slice: the aligned-layout solve at 2048² (f64
    state, f32 Krylov, matvecs through K1, residuals through K2) and the
    flagship solve at 2048² (f32 Krylov, df32 acceptance residual,
    DST-Poisson preconditioner built once);
-6. the chain lane: ``bench.py``'s matvec lane at 2048² f32 — per-matvec
+7. the chain lane: ``bench.py``'s matvec lane at 2048² f32 — per-matvec
    times of K3 and K5 by differencing chains of 200 and 2000 steps (each
    chain's output bitwise equal to its plain version), beside K1's per-call
    time on the same inputs;
-7. the Cheb-PCG solve: the flagship configuration with
+8. the Cheb-PCG solve: the flagship configuration with
    ``chebyshev(16, lo_frac=1/300)`` in place of the DST preconditioner, at
    2048² (every preconditioner apply one K4 launch) and at 1024²;
-8. warm repeats, the aligned solve at 64² against the same solve on the CPU,
-   and a breakdown: each component's cost alone and each solve's device
-   busy time under torch.profiler (measurements only).
+9. the probe lane: ``python -m newtonkrylov_tpu_torch.benchmarks.kernel_probe``
+   at N = 1024 (chains of 4000 and 400 steps; µs per step of every variant
+   and the cost model), the last output of the hoisted stencil ping-pong
+   held bit for bit against its plain version;
+10. the GMRES paths: the flagship configuration with ``algo="gmres"`` (the
+    driver's basis of 100) at 2048², and convection–diffusion (c = 2) at
+    512² with DST-preconditioned full GMRES, f32 Krylov and the df32
+    acceptance residual;
+11. warm repeats (the Bratu paths at 2048², Cheb-PCG also at 1024², its
+    lane's own size, convection–diffusion at 512²), the aligned and the
+    convection–diffusion solves at 64² against the same solves on the CPU,
+    and a breakdown: each component's cost alone and each solve's device
+    busy time under torch.profiler (measurements only).
 
-Launch counts are zeroed just before each of phases 5, 6 and 7 and read
-just after; each kernel must have been launched on its path.  The last two
-lines are a JSON object of per-kernel results and the JSON status object.
+Launch counts are zeroed just before each of phases 6–10 and read just
+after; each kernel must have been launched on its path.  The last two lines
+are a JSON object of per-kernel results and the JSON status object.
 Without a CUDA device the script fails and prints no result.
 """
 
@@ -54,6 +67,10 @@ REPS = 50         # launches per timing window
 CHAIN = (200, 2000)  # chain lengths the lane differences, as bench.py's
 CHEB_REF_1024 = (8, 377)  # outer/inner of the JAX package's Cheb-PCG lane
 #                           at 1024² (BENCH_r05.json), a count, not a time
+PROBE_N = 1024    # the JAX probe's default size (benchmarks/kernel_probe.py)
+PROBE_KS = 400    # its short chain: the K6 call the kernels JSON times
+CONVDIFF_N = 512  # the largest convection lane of bench.py (bench.py:333)
+CG_FLAGSHIP = (6, 7)  # the CG flagship's outer/inner counts at 2048²
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -120,6 +137,18 @@ def _device_ms(fn, reps=REPS):
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
+def _wall_s(torch, fn, reps=3):
+    """Host seconds per call of ``fn`` after a warm-up, the device drained
+    before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
 def _fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
@@ -135,13 +164,16 @@ def _bound(key, R, C, n, itemsize, steps=0):
     steps.  Bytes: each input read once, the output written once.
     Operations: what the interior needs (K5: every element) — K1 7 per
     element, K2 8 (eᵘ as one), K3 5 per step + a scale on half the steps +
-    w − 4 once, K5 the same on all R·C, K4 11 per degree step + 1."""
+    w − 4 once, K5 the same on all R·C, K4 11 per degree step + 1, K6 (the
+    hoisted stencil step of the probe, over all R·C) 4 adds and 2
+    multiplies per step + w − 4 and the scaled mask once."""
     arrays, ops = {
         "stencil_jvp": (3, 7 * n * n),
         "bratu_residual": (2, 8 * n * n),
         "stencil_jvp_chain": (3, n * n * (1 + 5 * steps + (steps + 1) // 2)),
         "stencil_chain_probe": (3, R * C * (1 + 5 * steps + steps // 2)),
         "chebyshev_apply": (3, n * n * (1 + 11 * steps)),
+        "chain_call": (3, R * C * (2 + 6 * steps)),
     }[key]
     t_bytes = arrays * R * C * itemsize / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
@@ -172,7 +204,7 @@ def phase_environment(torch):
 
     from newtonkrylov_tpu_torch.kernels import build
 
-    sources = ("stencil2d", "chain2d")
+    sources = ("stencil2d", "chain2d", "chain_probe")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         list(pool.map(build.load, sources))
@@ -321,6 +353,84 @@ def phase_chain_kernels(torch, nkt, bratu2d):
     return {key: (errs[key], *timed[key]) for key in errs}
 
 
+def phase_probe_kernels(torch):
+    """K6 against its plain version, bit for bit: every variant the JAX probe
+    times (``kernel_probe.VARIANTS``: carry and ping-pong, unroll 1, 2, 4) at
+    n = 64 and 1024, f32, k = 1, 7 and 8 (k = 7 checks the ping-pong
+    floor), on seeded random arrays whose ghosts and apron are nonzero, so
+    every wrap-around and the mask are exercised; each case timed per call
+    (CUDA events).  Returns (largest |kernel − plain|, ms, plain ms) with
+    the times those of the hoisted stencil ping-pong at 1024², k = 400."""
+    from newtonkrylov_tpu_torch.benchmarks import kernel_probe as tprobe
+    from newtonkrylov_tpu_torch.kernels import probe as kp
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err, cases = 0.0, 0
+    for n in (64, PROBE_N):
+        shape = (n + 8, k.round_up(n + 2, 128))
+        v = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).abs() + 0.1
+        for name, step, kw in tprobe.VARIANTS:
+            for steps in (1, 7, 8):
+                got = kp.chain_call(step, v, w, steps, **kw)
+                ref = kp.chain_call_xla(step, v, w, steps, **kw)
+                torch.cuda.synchronize()
+                e = float((got - ref).abs().max())
+                if not (bool(torch.isfinite(ref).all())
+                        and _bitwise_equal(torch, got, ref)):
+                    raise AssertionError(f"K6 n={n} {name} k={steps}: differs "
+                                         f"from plain, max|err| {e:.3e}")
+                err, cases = max(err, e), cases + 1
+                t = _time_ms(lambda: kp.chain_call(step, v, w, steps, **kw), 10)
+                p = _time_ms(lambda: kp.chain_call_xla(step, v, w, steps, **kw), 10)
+                log(f"[probe kernels] n={n} {name} k={steps} "
+                    f"({kp.steps_run(steps, **kw)} steps run): bitwise equal; "
+                    f"per call {t:.4f} ms vs plain {p:.4f} ms (CUDA events)")
+    log(f"[probe kernels] {cases} cases bitwise equal to the plain version")
+    v, w = tprobe.inputs(PROBE_N, dev)
+
+    def kern():
+        return kp.chain_call(kp.OPT_BUILD, v, w, PROBE_KS, pingpong=True)
+
+    def plain():
+        return kp.chain_call_xla(kp.OPT_BUILD, v, w, PROBE_KS, pingpong=True)
+
+    if not _bitwise_equal(torch, kern(), plain()):
+        raise AssertionError("K6 hoisted stencil ping-pong k=400 differs from plain")
+    t, p = _time_ms(kern, 5), _time_ms(plain, 3)
+    td, pd = _device_ms(kern, 5), _device_ms(plain, 3)
+    log(f"[probe kernels] n={PROBE_N} stencil hoisted pingpong k={PROBE_KS}: "
+        f"bitwise equal; per call {t:.4f} ms vs plain {p:.4f} ms (CUDA "
+        f"events); device time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
+    return (err, td if td is not None else t, pd if pd is not None else p)
+
+
+def phase_probe_lane(torch):
+    """The port's probe (``benchmarks/kernel_probe.py``) at N = 1024: µs per
+    step of every variant by chain differencing (4000 vs 400 steps) and the
+    cost model.  The last output of the hoisted stencil ping-pong is held
+    bit for bit against its plain version on the same input."""
+    from newtonkrylov_tpu_torch.benchmarks import kernel_probe as tprobe
+    from newtonkrylov_tpu_torch.kernels import probe as kp
+
+    timings = tprobe.run(PROBE_N)
+    model = tprobe.cost_model(timings)
+    kl, _ = tprobe.chain_lengths(PROBE_N)
+    _, w = tprobe.inputs(PROBE_N, torch.device("cuda", 0))
+    t = timings["stencil hoisted pingpong"]
+    ref = kp.chain_call_xla(kp.OPT_BUILD, t.v, w, kl, pingpong=True)
+    if not (bool(torch.isfinite(t.out).all())
+            and _bitwise_equal(torch, t.out, ref)):
+        raise AssertionError(f"probe lane: hoisted stencil ping-pong k={kl} "
+                             "not finite or not bitwise equal to plain")
+    log(f"[probe lane] stencil hoisted pingpong k={kl}: bitwise equal to "
+        f"plain, max|ref| {float(ref.abs().max()):.3e}")
+    return model
+
+
 def phase_selfcheck(torch):
     from newtonkrylov_tpu_torch import df32
 
@@ -386,7 +496,7 @@ def phase_aligned_small(torch, nkt, bratu2d):
         raise AssertionError("aligned 64² solve on the card disagrees with the CPU")
 
 
-def _df32_solve(torch, nkt, bratu2d, n, M, tag):
+def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg"):
     """The flagship configuration at n² with preconditioner factory ``M``:
     f32 Krylov, df32 acceptance residual, ``M`` built once at u₀.  Gated on
     ``solved`` and the f64 true residual; returns the NewtonInfo."""
@@ -399,7 +509,7 @@ def _df32_solve(torch, nkt, bratu2d, n, M, tag):
     # full state, for the f64 residual check below
     u, info = nkt.newton_krylov_jit(
         bratu2d.residual_scaled, u0.to(torch.float64), p,
-        algo="cg", tol_rel=1e-8, krylov_dtype=torch.float32,
+        algo=algo, tol_rel=1e-8, krylov_dtype=torch.float32,
         residual_df=bratu2d.residual_scaled_df,
         max_niter=20, M=M, precond_refresh="once",
     )
@@ -425,6 +535,90 @@ def phase_flagship(torch, nkt, bratu2d, pass_name):
 
     return _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
                        f"flagship {pass_name}, DST(high)")
+
+
+def phase_gmres_flagship(torch, nkt, bratu2d, pass_name):
+    """The flagship configuration with ``algo="gmres"`` and no ``restart``:
+    the driver's parity basis of min(n², 100) applies."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    info = _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
+                       f"gmres flagship {pass_name}, DST(high)", algo="gmres")
+    log(f"[gmres flagship {pass_name}] n={N} outer/inner "
+        f"{info.stats.outer_iterations}/{info.stats.inner_iterations} beside "
+        f"CG's {CG_FLAGSHIP[0]}/{CG_FLAGSHIP[1]} on the same configuration")
+    return info
+
+
+def _convdiff_solve(torch, nkt, n, device, refined):
+    """Convection–diffusion (c = 2) from the zero start with the JAX
+    package's recipe: DST-preconditioned full GMRES, exact Newton.
+    ``refined``: f32 Krylov + df32 acceptance residual to 1e-8 (the
+    production path); else f64 throughout to 1e-10.  Returns (u, info, wall
+    seconds, ‖F(u)‖ and ‖F(u₀)‖ in f64, max|u − u*|)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import convdiff2d
+
+    f64 = torch.float64
+    p = convdiff2d.default_config(n, dtype=f64, device=device)
+    u0 = convdiff2d.initial_guess(n, f64, device)
+    kw = dict(algo="gmres", M=fft_poisson(), forcing=None)
+    if refined:
+        kw.update(krylov_kwargs={"restart": None, "itmax": 600},
+                  krylov_dtype=torch.float32,
+                  residual_df=convdiff2d.residual_scaled_df,
+                  tol_rel=1e-8, max_niter=25)
+    else:
+        kw.update(krylov_kwargs={"restart": None, "itmax": 150}, tol_rel=1e-10)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, info = nkt.newton_krylov_jit(convdiff2d.residual_scaled, u0, p, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    norm = lambda x: float(torch.linalg.vector_norm(  # noqa: E731
+        convdiff2d.residual_scaled(x.to(f64), p)))
+    us = convdiff2d.manufactured_solution(n, f64, device)
+    return u, info, wall, norm(u), norm(u0), float((u - us).abs().max())
+
+
+def phase_convdiff(torch, nkt, pass_name):
+    """Convection–diffusion at 512² on the refined path.  Gates: ``solved``,
+    max|u − u*| ≤ 1e-6 and the f64 true residual ≤ 1e-8·‖F₀‖ + 1e-12."""
+    n = CONVDIFF_N
+    u, info, wall, fu, f0, err = _convdiff_solve(torch, nkt, n, "cuda", True)
+    log(f"[convdiff {pass_name}] n={n} c=2 GMRES(full, itmax 600) + DST, f32 "
+        f"Krylov + df32: solved={bool(info.solved)} "
+        f"outer={info.stats.outer_iterations} "
+        f"inner={info.stats.inner_iterations} "
+        f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s  true "
+        f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})  max|u - u*| "
+        f"{err:.3e} (limit 1e-6)")
+    if not bool(info.solved):
+        raise AssertionError("convdiff solve did not converge")
+    if not (torch.isfinite(u).all() and tuple(u.shape) == (n, n)):
+        raise AssertionError("convdiff solve returned a malformed state")
+    if not (fu <= 1e-8 * f0 + 1e-12 and err <= 1e-6):
+        raise AssertionError("convdiff solve: true residual or error above limit")
+    return info, wall
+
+
+def phase_convdiff_small(torch, nkt):
+    """The f64 convection–diffusion GMRES solve at 64² on the card and on
+    the CPU: both solved, the same counts, solutions within 1e-10."""
+    runs = {dev: _convdiff_solve(torch, nkt, 64, dev, False)
+            for dev in ("cuda", "cpu")}
+    (ug, ig, *_, eg), (uc, ic, *_, ec) = runs["cuda"], runs["cpu"]
+    diff = float((ug.cpu() - uc).abs().max())
+    log(f"[convdiff 64] cuda outer/inner {ig.stats.outer_iterations}/"
+        f"{ig.stats.inner_iterations}  cpu {ic.stats.outer_iterations}/"
+        f"{ic.stats.inner_iterations}  max|u_cuda - u_cpu| {diff:.3e}  "
+        f"max|u - u*| {eg:.3e}")
+    same = (ig.stats.outer_iterations == ic.stats.outer_iterations
+            and ig.stats.inner_iterations == ic.stats.inner_iterations)
+    if not (bool(ig.solved) and bool(ic.solved) and same and diff <= 1e-10):
+        raise AssertionError("convdiff 64² solve on the card disagrees with the CPU")
 
 
 def phase_cheb(torch, nkt, bratu2d, n, pass_name):
@@ -511,34 +705,25 @@ def phase_breakdown(torch, nkt, bratu2d):
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
     from newtonkrylov_tpu_torch.precond import chebyshev
 
-    def wall_s(fn, reps=3):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps
-
     p = bratu2d.default_config(N, lam=LAM)
     u = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda")
     ua, pa, _ = bratu2d.aligned_setup(N, lam=LAM, dtype=torch.float32,
                                       device="cuda")
     for tag, F, x, pp in (("flagship", bratu2d.residual_scaled, u, p),
                           ("aligned", bratu2d.residual_scaled_aligned, ua, pa)):
-        lin = wall_s(lambda: nkt.JacobianOperator(F, x, pp))
+        lin = _wall_s(torch, lambda: nkt.JacobianOperator(F, x, pp))
         J = nkt.JacobianOperator(F, x, pp)
         log(f"[breakdown] {tag}: linearize {lin * 1e3:.2f} ms host wall; "
             f"matvec replay {_time_ms(lambda: J.mv(x)):.4f} ms per call, "
             f"device {_fmt_ms(_device_ms(lambda: J.mv(x)))}")
     J = nkt.JacobianOperator(bratu2d.residual_scaled, u, p)
-    build_s = wall_s(lambda: fft_poisson(precision="high")(J))
+    build_s = _wall_s(torch, lambda: fft_poisson(precision="high")(J))
     M = fft_poisson(precision="high")(J)
     log(f"[breakdown] DST preconditioner: factory {build_s * 1e3:.2f} ms host "
         f"wall; apply {_time_ms(lambda: M(u), 10):.4f} ms per call, device "
         f"{_fmt_ms(_device_ms(lambda: M(u), 10))}")
     cheb = chebyshev(16, lo_frac=1 / 300)
-    build_s = wall_s(lambda: cheb(J))
+    build_s = _wall_s(torch, lambda: cheb(J))
     M = cheb(J)
     log(f"[breakdown] Chebyshev(16) preconditioner: factory {build_s * 1e3:.2f}"
         f" ms host wall; apply (one K4 launch) {_time_ms(lambda: M(u), 10):.4f}"
@@ -547,7 +732,7 @@ def phase_breakdown(torch, nkt, bratu2d):
     log(f"[breakdown] df32 residual: {_time_ms(lambda: bratu2d.residual_scaled_df(ud, p), 10):.4f}"
         f" ms per call, device "
         f"{_fmt_ms(_device_ms(lambda: bratu2d.residual_scaled_df(ud, p), 10))}; "
-        f"floor_estimate {wall_s(lambda: df32.floor_estimate(bratu2d.residual_scaled, u, p)) * 1e3:.2f}"
+        f"floor_estimate {_wall_s(torch, lambda: df32.floor_estimate(bratu2d.residual_scaled, u, p)) * 1e3:.2f}"
         f" ms host wall")
     for tag, run in (("flagship", lambda: phase_flagship(torch, nkt, bratu2d, "profiled")),
                      ("cheb-pcg", lambda: phase_cheb(torch, nkt, bratu2d, N, "profiled")),
@@ -563,6 +748,69 @@ def phase_breakdown(torch, nkt, bratu2d):
             log(f"[breakdown]   {us / 1e3:9.2f} ms  {name[:90]}")
 
 
+def _kernel_class(name):
+    """The part of a GMRES solve a device kernel belongs to, by its name."""
+    low = name.lower()
+    if any(t in low for t in ("gemv", "dot_kernel", "gemmsn", "reduce_1block")):
+        return "Arnoldi products (cuBLAS gemv/dot)"
+    if any(t in low for t in ("gemm", "cutlass", "xmma")):
+        return "DST apply (cuBLAS/CUTLASS gemm)"
+    return "other (matvec replay, df32, vector updates)"
+
+
+def phase_convdiff_breakdown(torch, nkt, warm_wall):
+    """Where the 512² convection–diffusion solve spends its time: the DST
+    apply and one CGS2 pass over a 100-row basis alone, and the whole solve
+    under torch.profiler — the device busy share (against the profiled and
+    the unprofiled warm wall) and the device time by part (no asserts)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import convdiff2d
+    from newtonkrylov_tpu_torch.tree import tree_basis_combine, tree_project_rows
+
+    n, f32 = CONVDIFF_N, torch.float32
+    p = convdiff2d.default_config(n, dtype=f32, device="cuda")
+    u = convdiff2d.manufactured_solution(n, f32, "cuda")
+
+    def linearize():
+        return nkt.JacobianOperator(convdiff2d.residual_scaled, u, p)
+
+    def factory():
+        return fft_poisson()(J)
+
+    J = linearize()
+    M = factory()
+    log(f"[breakdown] convdiff {n}²: linearize {_wall_s(torch, linearize) * 1e3:.2f}"
+        f" ms host wall; DST factory {_wall_s(torch, factory) * 1e3:.2f} ms host"
+        f" wall; matvec replay {_time_ms(lambda: J.mv(u), 10):.4f} ms per "
+        f"call, device {_fmt_ms(_device_ms(lambda: J.mv(u), 10))}")
+    log(f"[breakdown] convdiff {n}² DST apply: {_time_ms(lambda: M(u), 10):.4f}"
+        f" ms per call, device {_fmt_ms(_device_ms(lambda: M(u), 10))}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    V = torch.randn((100, n, n), generator=gen, device="cuda", dtype=f32)
+
+    def cgs_pass():
+        return u - tree_basis_combine(V, tree_project_rows(V, u))
+
+    log(f"[breakdown] convdiff {n}² one CGS pass (project + combine) over 100 "
+        f"basis rows: {_time_ms(cgs_pass, 10):.4f} ms per call, device "
+        f"{_fmt_ms(_device_ms(cgs_pass, 10))}")
+    t0 = time.perf_counter()
+    by_name, busy_us = _profile(lambda: phase_convdiff(torch, nkt, "profiled"))
+    wall = time.perf_counter() - t0
+    parts = {}
+    for name, us in by_name.items():
+        parts[_kernel_class(name)] = parts.get(_kernel_class(name), 0.0) + us
+    log(f"[breakdown] convdiff solve under the profiler: wall {wall:.3f} s, "
+        f"device busy {busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}% "
+        f"of the profiled wall, {100 * busy_us / 1e6 / warm_wall:.1f}% of the "
+        f"warm wall {warm_wall:.3f} s)")
+    for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[breakdown]   {us / 1e3:9.2f} ms  {100 * us / busy_us:5.1f}% of "
+            f"device busy  {part}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[breakdown]   {us / 1e3:9.2f} ms  {name[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -572,12 +820,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import newtonkrylov_tpu_torch as nkt
+    from newtonkrylov_tpu_torch.kernels import probe as kp
     from newtonkrylov_tpu_torch.kernels import stencil2d as k
     from newtonkrylov_tpu_torch.problems import bratu2d
 
     phase_environment(torch)
     summary = phase_kernels(torch)
     summary.update(phase_chain_kernels(torch, nkt, bratu2d))
+    summary["chain_call"] = phase_probe_kernels(torch)
     phase_selfcheck(torch)
 
     # Each path counted on its own: the counts are zeroed just before it and
@@ -585,10 +835,12 @@ def main() -> int:
     launches = {}
 
     def counted(path, keys, run):
-        k.reset_launch_counts()
+        for counters in (k, kp):
+            counters.reset_launch_counts()
         out = run()
-        launches.update({key: k.LAUNCHES[key] for key in keys})
-        log(f"[launches] {path}: {dict(k.LAUNCHES)}")
+        now = {**k.LAUNCHES, **kp.LAUNCHES}
+        launches.update({key: now[key] for key in keys})
+        log(f"[launches] {path}: {now}")
         for key in keys:
             if launches[key] <= 0:
                 raise AssertionError(f"{key} was never launched by the {path}")
@@ -611,41 +863,59 @@ def main() -> int:
     if launches["chebyshev_apply"] < info_c.stats.inner_iterations:
         raise AssertionError("K4 launched fewer times than the Cheb-PCG "
                              "solve's inner iterations")
+    model = counted("probe lane", ("chain_call",),
+                    lambda: phase_probe_lane(torch))
+    # the GMRES paths run no hand-written kernel: their counts are logged
+    counted("gmres flagship", (),
+            lambda: phase_gmres_flagship(torch, nkt, bratu2d, "run"))
+    counted("convdiff solve", (), lambda: phase_convdiff(torch, nkt, "run"))
 
     # warm repeats (first-use costs paid), the lane's own size, the
-    # small-size cross-check and the breakdown
+    # small-size cross-checks and the breakdowns
     phase_aligned(torch, nkt, bratu2d, "warm")
     phase_flagship(torch, nkt, bratu2d, "warm")
     phase_cheb(torch, nkt, bratu2d, N, "warm")
     phase_cheb(torch, nkt, bratu2d, 1024, "run")
+    _, warm_wall = phase_convdiff(torch, nkt, "warm")
     phase_aligned_small(torch, nkt, bratu2d)
+    phase_convdiff_small(torch, nkt)
     phase_breakdown(torch, nkt, bratu2d)
+    phase_convdiff_breakdown(torch, nkt, warm_wall)
 
-    R, C = N + 8, k.round_up(N + 2, 128)
     pallas = "newtonkrylov_tpu/kernels/stencil2d.py"
-    # kernel -> (source, line of its Pallas function, steps of the timed call)
+    # kernel -> (source, replaced Pallas function, interior n, steps of the
+    # timed call)
     table = {
-        "stencil_jvp": ("stencil2d", 244, 0),
-        "bratu_residual": ("stencil2d", 482, 0),
-        "stencil_jvp_chain": ("chain2d", 302, CHAIN[0]),
-        "chebyshev_apply": ("chain2d", 448, 16),
-        "stencil_chain_probe": ("chain2d", 366, CHAIN[0]),
+        "stencil_jvp": ("stencil2d", f"{pallas}:245", N, 0),
+        "bratu_residual": ("stencil2d", f"{pallas}:483", N, 0),
+        "stencil_jvp_chain": ("chain2d", f"{pallas}:302", N, CHAIN[0]),
+        "chebyshev_apply": ("chain2d", f"{pallas}:448", N, 16),
+        "stencil_chain_probe": ("chain2d", f"{pallas}:366", N, CHAIN[0]),
+        "chain_call": ("chain_probe", "benchmarks/kernel_probe.py:42",
+                       PROBE_N, PROBE_KS),
     }
     kernels = []
-    for name, (src, line, steps) in table.items():
+    for name, (src, replaces, n, steps) in table.items():
         err, ms, plain_ms = summary[name]
-        bound_ms, bound_by = _bound(name, R, C, N, 4, steps)
+        bound_ms, bound_by = _bound(name, n + 8, k.round_up(n + 2, 128), n, 4,
+                                    steps)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"newtonkrylov_tpu_torch/csrc/{src}.cu",
-            "replaces": f"{pallas}:{line}", "launches": launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-        log(f"[summary] {name}: 2048² f32{f' steps={steps}' if steps else ''}"
+        log(f"[summary] {name}: {n}² f32{f' steps={steps}' if steps else ''}"
             f" {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
             f" ({bound_by}); {launches[name]} launches on its path")
     for name, us in per_matvec.items():
         log(f"[summary] {name}: {us * 1e3:.2f} us per chained matvec")
+    log(f"[summary] probe cost model at {PROBE_N}²: copy + grid sync per step "
+        f"{model['copy_sync_stencil_us']:.3f} us (stencil), step through "
+        f"memory {model['memory_step_us'][2]:.3f} us (mul x2), row shift "
+        f"{model['row_shift_us']:.3f} us, column shift "
+        f"{model['column_shift_us']:.3f} us, per multiply "
+        f"{model['per_mul_us']:.3f} us")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

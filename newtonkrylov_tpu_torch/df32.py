@@ -1,11 +1,12 @@
 """Double-float ("df32") arithmetic: ~f64 accuracy from paired f32.
 
-Counterpart of :mod:`newtonkrylov_tpu.df32`, the subset the 2-D Bratu
-flagship uses.  A df32 value is a pair ``(hi, lo)`` of same-shape float32
-tensors with ``hi = fl(hi + lo)``; it represents ``hi + lo`` with ~49
-effective mantissa bits.  The Newton driver's ``residual_df`` path evaluates
-the acceptance residual in this arithmetic, so ‖F‖ can be driven to
-1e-8·‖F₀‖ while the state is carried as float32 words.
+Counterpart of ``newtonkrylov_tpu/df32.py``, the subset the 2-D Bratu
+flagship and the convection–diffusion residual use.  A df32 value is a pair
+``(hi, lo)`` of same-shape float32 tensors with ``hi = fl(hi + lo)``; it
+represents ``hi + lo`` with ~49 effective mantissa bits.  The Newton
+driver's ``residual_df`` path evaluates the acceptance residual in this
+arithmetic, so ‖F‖ can be driven to 1e-8·‖F₀‖ while the state is carried
+as float32 words.
 
 .. warning:: **Strict IEEE float32 arithmetic only.**  The error-free
    transforms (``two_sum``, ``two_prod``) break under contraction
@@ -29,8 +30,8 @@ from .utils import default_device
 __all__ = [
     "DF", "two_sum", "fast_two_sum", "two_prod",
     "df_from_f64", "df_to_f64", "df_from_f32", "tree_add_f32",
-    "add", "add_f32", "neg", "mul", "exp", "norm_hi",
-    "shift", "neighbor_sum", "scale_pow2", "scaled_exp",
+    "add", "add_f32", "neg", "sub", "mul", "exp", "norm_hi",
+    "shift", "neighbor_sum", "scale_pow2", "scale_const", "scaled_exp",
     "selfcheck", "floor_estimate",
 ]
 
@@ -125,6 +126,10 @@ def neg(a: DF) -> DF:
     return DF(-a.hi, -a.lo)
 
 
+def sub(a: DF, b: DF) -> DF:
+    return add(a, neg(b))
+
+
 def mul(a: DF, b: DF) -> DF:
     """Double-word × double-word (~25 flops)."""
     p, e = two_prod(a.hi, b.hi)
@@ -212,6 +217,18 @@ def scale_pow2(a: DF, c) -> DF:
     if not (m in (0.5, -0.5) or f == 0.0):
         raise ValueError(f"{c} is not a power of two")
     return DF(f * a.hi, f * a.lo)
+
+
+def scale_const(a: DF, c: float) -> DF:
+    """c·a for a general host constant: c split into an (hi, lo) float32
+    pair, a double-word multiply, returned without the final renormalizing
+    ``fast_two_sum`` (the JAX package's choice: every consumer starts with an
+    exact ``two_sum``, and XLA:CPU reassociates that last step away)."""
+    chi = np.float32(c)
+    clo = float(np.float32(float(c) - float(chi)))
+    p, e = two_prod(a.hi, torch.tensor(chi, device=a.hi.device))
+    e = e + (a.hi * clo + a.lo * float(chi))
+    return DF(p, e)
 
 
 def scaled_exp(a: DF, c: float) -> DF:

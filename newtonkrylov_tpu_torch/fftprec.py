@@ -1,6 +1,6 @@
 """Fast-Poisson (DST) preconditioner for 5-point-stencil Jacobians.
 
-Counterpart of :mod:`newtonkrylov_tpu.fftprec` with ``scope="local"``.  It
+Counterpart of ``newtonkrylov_tpu/fftprec.py`` with ``scope="local"``.  It
 diagonalizes the constant-coefficient part of ``A = o·S + d(x)·I`` exactly:
 with zero-Dirichlet BCs the 5-point Laplacian's eigenvectors are the 2-D
 discrete sine basis, so

@@ -1,6 +1,6 @@
 """Inexact-Newton forcing strategies.
 
-Counterpart of :mod:`newtonkrylov_tpu.forcing`, with the same arithmetic and
+Counterpart of ``newtonkrylov_tpu/forcing.py``, with the same arithmetic and
 branch structure (iteration-count parity depends on it):
 
 * :class:`Fixed` — constant η (default 0.1).

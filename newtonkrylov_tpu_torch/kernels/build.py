@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``_build/lib<name>-<digest>.so`` inside the package (git-ignored), where
-``<digest>`` hashes the source and the flags, so an edited source is rebuilt
+``<digest>`` hashes the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  The library is bound with
 :mod:`ctypes`; nothing here includes PyTorch's headers, which keeps a build
 to seconds.  A build that fails raises with the compiler's output.
@@ -50,10 +51,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built: the
-    file name carries a digest of the source and the flags."""
+    file name carries a digest of the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

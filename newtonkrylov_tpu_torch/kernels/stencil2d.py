@@ -1,6 +1,6 @@
 """Fused 2-D stencil kernels on the aligned ghost layout (the JFNK hot matvec).
 
-Counterpart of :mod:`newtonkrylov_tpu.kernels.stencil2d`.  Inside the Krylov
+Counterpart of ``newtonkrylov_tpu/kernels/stencil2d.py``.  Inside the Krylov
 loop every iteration applies the linearized Bratu residual
 
     (J v)[i,j] = v[i±1,j] + v[i,j±1] − 4 v[i,j] + w[i,j]·v[i,j]

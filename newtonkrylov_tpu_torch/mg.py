@@ -1,6 +1,6 @@
 """Coefficient probing of 5-point-stencil Jacobians.
 
-Counterpart of the part of :mod:`newtonkrylov_tpu.mg` the DST preconditioner
+Counterpart of the part of ``newtonkrylov_tpu/mg.py`` the DST preconditioner
 needs: :func:`probe_5point`.  Operator model ``A u = o·S(u) + d(x)·u`` with
 ``S`` the sum of the four neighbors (zero-Dirichlet ghosts), ``o`` the
 constant off-diagonal coefficient and ``d`` the varying diagonal.  The

@@ -1,6 +1,6 @@
 """Inexact Newton–Krylov driver.
 
-Counterpart of :func:`newtonkrylov_tpu.newton.newton_krylov_jit`, with the
+Counterpart of ``newton_krylov_jit`` of ``newtonkrylov_tpu/newton.py``, with the
 reference's semantics and defaults:
 
 * ``tol = tol_rel·‖F(u₀)‖ + tol_abs`` (``tol_rel = 1e-6``,
@@ -8,12 +8,14 @@ reference's semantics and defaults:
 * Per outer iteration: preconditioner factories ``M(J)``/``N(J)`` (or once at
   u₀), inner ``rtol = η`` from the forcing strategy, solve ``J d = F(u)``,
   step ``u ← u − d``; abort when ‖F‖ goes NaN/Inf.
+* ``algo="gmres"`` (the default) or ``"fgmres"`` without a ``restart`` in
+  ``krylov_kwargs`` runs one cycle of basis ``min(n, 100)``.
 
 The JAX package runs this loop as one XLA ``while_loop``.  Here it is a
 Python loop over device tensors: the state, residual, η, tolerance and
 history stay on the device, and each outer iteration reads one boolean
-back, in its loop condition (the CG loop inside reads one per inner
-iteration).  Capturing the loop in CUDA graphs is later work.
+back, in its loop condition (the CG and GMRES loops inside read one per
+inner iteration).  Capturing the loop in CUDA graphs is later work.
 
 The host-stepped ``newton_krylov`` driver is not ported yet (ROADMAP.md
 Queue 1, item 7).
@@ -31,7 +33,7 @@ from . import solvers
 from .forcing import EisenstatWalker, Forcing
 from .operator import JacobianOperator
 from .spaces import EuclideanSpace, VectorSpace
-from .tree import tree_dtype, tree_leaves, tree_map, tree_sub
+from .tree import tree_dtype, tree_leaves, tree_map, tree_size, tree_sub
 
 __all__ = ["Stats", "NewtonInfo", "newton_krylov_jit"]
 
@@ -53,6 +55,18 @@ class NewtonInfo(NamedTuple):
     history: Any = None  # residual-norm trace, NaN-padded to max_niter + 2
     floor_limited: Any = False  # df32 path: tol was clamped to the measured
     #   representation floor (floor_rtol)
+
+
+# The reference's inner GMRES (Krylov.jl) is non-restarted; the drivers
+# default to one full cycle of basis min(n, 100), which gives the
+# non-restarted counts whenever the inner solve converges within the basis
+# and restarts beyond it.  ``krylov_kwargs={"restart": ...}`` overrides.
+_PARITY_GMRES_BASIS = 100
+
+
+def _gmres_parity_default(krylov_kwargs: dict, algo: str, example_res) -> None:
+    if algo in ("gmres", "fgmres") and "restart" not in krylov_kwargs:
+        krylov_kwargs["restart"] = min(tree_size(example_res), _PARITY_GMRES_BASIS)
 
 
 def _cast_floating(tree, dt):
@@ -165,9 +179,11 @@ def newton_krylov_jit(
         out_f64 = any(l.dtype == torch.float64 for l in tree_leaves(u0))
         u0 = _dd.df_from_f64(u0)
         res0 = residual_df(u0, p)
+        _gmres_parity_default(krylov_kwargs, algo, res0.hi)
         n_res0 = space.norm(res0.hi)
     else:
         res0 = F(u0, p)
+        _gmres_parity_default(krylov_kwargs, algo, res0)
         n_res0 = space.norm(res0)
     dtype, device = n_res0.dtype, n_res0.device
     tol = tol_rel * n_res0 + tol_abs

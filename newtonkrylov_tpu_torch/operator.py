@@ -1,6 +1,6 @@
 """Matrix-free Jacobian operators backed by PyTorch forward-mode AD.
 
-Counterpart of :mod:`newtonkrylov_tpu.operator`.  The residual is
+Counterpart of ``newtonkrylov_tpu/operator.py``.  The residual is
 linearized once per Newton iteration with :func:`torch.func.linearize`:
 it traces the tangent map into an FX graph and folds everything that
 depends only on the linearization point (``exp(u)`` and the like) into

@@ -1,6 +1,6 @@
 """Plain tensor stencil building blocks.
 
-Counterpart of :mod:`newtonkrylov_tpu.ops.stencil`: Dirichlet ghosts are
+Counterpart of ``newtonkrylov_tpu/ops/stencil.py``: Dirichlet ghosts are
 materialized by a constant pad, then the stencil reads shifted slices.
 """
 

@@ -1,6 +1,6 @@
 """Preconditioner factories for the Newton inner solves: the Chebyshev subset.
 
-Counterpart of the part of :mod:`newtonkrylov_tpu.precond` that builds
+Counterpart of the part of ``newtonkrylov_tpu/precond.py`` that builds
 :func:`chebyshev`.  A factory is invoked with the current
 :class:`~newtonkrylov_tpu_torch.operator.JacobianOperator` (every outer
 iteration, or once at u₀ with ``precond_refresh="once"``) and returns the

@@ -1,6 +1,6 @@
 """2-D Bratu problem ``Δu + λeᵘ = 0`` on the unit square, zero Dirichlet BCs.
 
-Counterpart of :mod:`newtonkrylov_tpu.problems.bratu2d`.  The state is the
+Counterpart of ``newtonkrylov_tpu/problems/bratu2d.py``.  The state is the
 (n, n) interior; ghosts are materialized by a constant pad.  The Δx²-scaled
 residual is the flagship's (f32-safe; same roots and Newton counts).
 

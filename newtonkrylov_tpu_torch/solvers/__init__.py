@@ -1,7 +1,8 @@
 """Matrix-free Krylov solvers.
 
-Counterpart of :mod:`newtonkrylov_tpu.solvers`.  Only ``cg`` is ported; the
-other names of the reference's menu raise until their ROADMAP.md item lands.
+Counterpart of ``newtonkrylov_tpu/solvers/``.  Ported: ``gmres`` (the
+default of the Newton driver), ``fgmres`` and ``cg``; ``bicgstab`` and
+``cgls`` raise until their ROADMAP.md item lands.
 """
 
 from __future__ import annotations
@@ -10,11 +11,12 @@ import inspect
 
 from .cg import cg
 from .common import KrylovResult
+from .gmres import fgmres, gmres
 
-_ALGOS = {"cg": cg}
-_NOT_PORTED = ("gmres", "fgmres", "bicgstab", "cgls")
+_ALGOS = {"gmres": gmres, "fgmres": fgmres, "cg": cg}
+_NOT_PORTED = ("bicgstab", "cgls")
 
-__all__ = ["cg", "solve", "KrylovResult", "available_algos"]
+__all__ = ["gmres", "fgmres", "cg", "solve", "KrylovResult", "available_algos"]
 
 
 def available_algos():
@@ -22,7 +24,9 @@ def available_algos():
 
 
 def solve(algo: str, A, b, x0=None, **kwargs) -> KrylovResult:
-    """Dispatch on algorithm name; kwargs are filtered to what it accepts."""
+    """Dispatch on algorithm name.  kwargs are filtered to what the solver
+    accepts, or forwarded whole to one that takes ``**kwargs`` (``fgmres``
+    forwards them to ``gmres``)."""
     if algo in _NOT_PORTED:
         raise NotImplementedError(
             f"algo {algo!r} is not ported yet (ROADMAP.md Queue 1, item 13)")
@@ -32,4 +36,6 @@ def solve(algo: str, A, b, x0=None, **kwargs) -> KrylovResult:
         raise ValueError(
             f"unknown algo {algo!r}; available: {available_algos()}") from None
     params = inspect.signature(fn).parameters
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return fn(A, b, x0, **kwargs)
     return fn(A, b, x0, **{k: v for k, v in kwargs.items() if k in params})

@@ -1,6 +1,6 @@
 """Preconditioned Conjugate Gradient.
 
-Counterpart of the plain PCG of :mod:`newtonkrylov_tpu.solvers.cg`: the same
+Counterpart of the plain PCG of ``newtonkrylov_tpu/solvers/cg.py``: the same
 recurrences, space-injected reductions and Krylov.jl termination
 ``‖r‖ ≤ atol + rtol·‖r₀‖``.  The loop is a Python ``while`` over device
 scalars; its condition reads one boolean back per iteration, the only host

@@ -1,6 +1,6 @@
 """Shared solver plumbing: results, tolerances, operator adapters.
 
-Counterpart of :mod:`newtonkrylov_tpu.solvers.common`.  Termination follows
+Counterpart of ``newtonkrylov_tpu/solvers/common.py``.  Termination follows
 Krylov.jl: stop when ``‖r_k‖ ≤ atol + rtol·‖r₀‖`` with defaults
 ``atol = rtol = √eps(dtype)``.
 """

@@ -1,6 +1,6 @@
 """Vector spaces: where the solvers' reductions live.
 
-Counterpart of :mod:`newtonkrylov_tpu.spaces`.  Solvers take a ``space`` and
+Counterpart of ``newtonkrylov_tpu/spaces.py``.  Solvers take a ``space`` and
 perform every dot product and norm through it; elementwise updates stay raw
 tensor ops.
 
@@ -19,7 +19,7 @@ from typing import Any
 
 import torch
 
-from .tree import tree_dtype, tree_map, tree_norm, tree_vdot
+from .tree import tree_dtype, tree_map, tree_norm, tree_project_rows, tree_vdot
 
 __all__ = ["VectorSpace", "EuclideanSpace", "MaskedSpace"]
 
@@ -45,6 +45,15 @@ class VectorSpace:
         """Zero out entries that do not belong to the space (ghost cells)."""
         return x
 
+    def project_rows(self, V, w):
+        """<V[j], w> for all rows j of a stacked basis → (m,) vector."""
+        raise NotImplementedError
+
+    def reduce_rows(self, h):
+        """Complete a vector of locally accumulated inner products (blocked
+        orthogonalization): the identity on one device."""
+        return h
+
     def size_multiplier(self):
         """Global size = local tree_size × this (1 without sharding)."""
         return 1
@@ -59,6 +68,9 @@ class EuclideanSpace(VectorSpace):
 
     def norm(self, x):
         return tree_norm(x)
+
+    def project_rows(self, V, w):
+        return tree_project_rows(V, w)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +95,9 @@ class MaskedSpace(VectorSpace):
 
     def dot(self, x, y):
         return tree_vdot(self.mask_tree(x), y)
+
+    def project_rows(self, V, w):
+        return tree_project_rows(V, self.mask_tree(w))
 
     def mask_tree(self, x):
         return tree_map(torch.mul, self._mask_as(tree_dtype(x)), x)

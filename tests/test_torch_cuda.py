@@ -14,10 +14,12 @@ import torch
 import newtonkrylov_tpu_torch as nkt
 from newtonkrylov_tpu_torch import df32
 from newtonkrylov_tpu_torch.fftprec import fft_poisson
+from newtonkrylov_tpu_torch.kernels import probe as kp
 from newtonkrylov_tpu_torch.kernels import stencil2d as tk
 from newtonkrylov_tpu_torch.mg import probe_5point
 from newtonkrylov_tpu_torch.precond import _cheb_bounds, chebyshev
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
+from newtonkrylov_tpu_torch.problems import convdiff2d as tc
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +214,46 @@ def test_cheb_pcg_solve_on_card(cuda_device):
     f0 = float(torch.linalg.vector_norm(tb.residual_scaled(u0.to(torch.float64), p)))
     fu = float(torch.linalg.vector_norm(tb.residual_scaled(u, p)))
     assert fu <= 1e-8 * f0 + 1e-12
+
+
+@pytest.mark.parametrize("step,kw", [
+    (kp.muls(8), {}),
+    (kp.roll_chain(1, 4), {}),
+    (kp.OPT_BUILD, {"pingpong": True, "unroll": 2}),
+], ids=["mul-x8-carry", "roll-lane-x4-carry", "stencil-hoisted-pingpong-u2"])
+def test_chain_call_matches_plain(cuda_device, step, kw):
+    """K6 on three probe variants (a register-carried multiply chain, a
+    carried column-shift chain through memory, the hoisted stencil in
+    ping-pong), k = 1, 7, 8 on a 64² aligned f32 array: bitwise equal to
+    its plain version, one launch per call."""
+    n = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    v, w = (_rand(n, cuda_device, torch.float32, gen, absval=a) for a in (False, True))
+    kp.reset_launch_counts()
+    for k in (1, 7, 8):
+        assert _bitwise(kp.chain_call(step, v, w, k, **kw),
+                        kp.chain_call_xla(step, v, w, k, **kw))
+    assert kp.LAUNCHES == {"chain_call": 3}
+    with pytest.raises(ValueError, match="float32"):
+        kp.chain_call(step, v.double(), w.double(), 2)
+
+
+def test_gmres_convdiff_solve_on_card_matches_cpu(cuda_device):
+    """The convection–diffusion solve (c = 2, DST, full GMRES, exact Newton)
+    at 64² in f64 on the card and on the CPU: same counts, solutions within
+    1e-10, both at the manufactured root."""
+    n = 64
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tc.default_config(n, device=dev)
+        runs[str(dev)] = nkt.newton_krylov_jit(
+            tc.residual_scaled, tc.initial_guess(n, device=dev), p,
+            algo="gmres", tol_rel=1e-10, M=fft_poisson(), forcing=None,
+            krylov_kwargs={"restart": None, "itmax": 150})
+    (uc, ic), (ug, ig) = runs["cpu"], runs[str(cuda_device)]
+    assert bool(ic.solved) and bool(ig.solved)
+    assert ig.stats.outer_iterations == ic.stats.outer_iterations
+    assert ig.stats.inner_iterations == ic.stats.inner_iterations
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-10
+    us = tc.manufactured_solution(n, device="cpu")
+    assert float((uc - us).abs().max()) < 1e-9

@@ -191,7 +191,7 @@ def test_driver_rejects_unported_and_bad_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", linesearch="armijo")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="gmres")
+        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="bicgstab")
     with pytest.raises(TypeError, match="forcing"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", forcing=0.1)
 
