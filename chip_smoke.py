@@ -13,10 +13,12 @@ Phases (each raises on failure; the script exits non-zero after any):
 2. K1 and K2 against their plain PyTorch versions on the card, in f32 and
    f64 at n = 2048 and n = 64 (K1 exactly equal, K2 within 4 ulp), timed
    per call (CUDA events) and in device time alone (torch.profiler);
-3. the chain kernels K3 (k = 1, 2, 7, 200), K5 (k = 2, 200) and K4 (degree
-   1, 4, 16, on the interval of a probed Bratu Jacobian) against their plain
-   versions, bit for bit, at the same sizes, dtypes and seeded inputs, timed
-   the same way;
+3. the chain kernels K3 (k = 0, 1, 2, 7, 33, 200), K5 (k = 2, 200) and K4
+   (degree 0, 1, 4, 16, 40, on the interval of a probed Bratu Jacobian)
+   against their plain versions, bit for bit, at the same sizes and dtypes
+   on the same seeded inputs with random ghosts and apron (so the tiles'
+   wrapped halos are exercised; k = 33, 200 and degree 40 take several
+   passes), timed the same way;
 4. the probe kernel K6 against its plain version, bit for bit: each of the
    JAX probe's 20 variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed
    per call;
@@ -44,7 +46,8 @@ Phases (each raises on failure; the script exits non-zero after any):
     lane's own size, convection–diffusion at 512²), the aligned and the
     convection–diffusion solves at 64² against the same solves on the CPU,
     and a breakdown: each component's cost alone and each solve's device
-    busy time under torch.profiler (measurements only).
+    busy time under torch.profiler, with K4's device time per launch inside
+    the 2048² Cheb-PCG solve (measurements only).
 
 Launch counts are zeroed just before each of phases 6–10 and read just
 after; each kernel must have been launched on its path.  The last two lines
@@ -103,10 +106,10 @@ def _time_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def _profile(fn):
+def _profile(fn, counts=None):
     """(device µs by kernel name, total device µs) of one call of ``fn``,
     from torch.profiler's CUDA activity; empty when the profiler records no
-    device time."""
+    device time.  ``counts``, a dict, receives the events by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,6 +124,8 @@ def _profile(fn):
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return by_name, sum(by_name.values())
 
 
@@ -312,8 +317,12 @@ def phase_chain_kernels(torch, nkt, bratu2d):
     errs = dict.fromkeys(("stencil_jvp_chain", "stencil_chain_probe",
                           "chebyshev_apply"), 0.0)
     timed = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for (n, dt), (v, w, _) in _inputs(torch, k, dev):
         tag = f"n={n} {str(dt).replace('torch.', '')}"
+        ghosts = ~k.aligned_mask(n, torch.bool, dev)
+        v = torch.where(ghosts, torch.randn(v.shape, generator=gen, device=dev,
+                                            dtype=dt), v)
         J = nkt.JacobianOperator(bratu2d.residual_scaled,
                                  bratu2d.initial_guess(n, dt, dev),
                                  bratu2d.default_config(n, LAM))
@@ -323,7 +332,7 @@ def phase_chain_kernels(torch, nkt, bratu2d):
         cases = [("stencil_jvp_chain", "K3", s,
                   lambda s=s: k.stencil_jvp_chain(v, w, n, s, 0.125),
                   lambda s=s: k.stencil_jvp_chain_xla(v, w, n, s, 0.125))
-                 for s in (1, 2, 7, CHAIN[0])]
+                 for s in (0, 1, 2, 7, 33, CHAIN[0])]
         cases += [("stencil_chain_probe", "K5", s,
                    lambda s=s: k.stencil_chain_probe(v, w, n, s),
                    lambda s=s: k.stencil_chain_probe_xla(v, w, n, s))
@@ -331,7 +340,7 @@ def phase_chain_kernels(torch, nkt, bratu2d):
         cases += [("chebyshev_apply", "K4", s,
                    lambda s=s: k.chebyshev_apply(v, diag, scal, n, s),
                    lambda s=s: k.chebyshev_apply_xla(v, diag, scal, n, s))
-                  for s in (1, 4, 16)]
+                  for s in (0, 1, 4, 16, 40)]
         for key, short, steps, kern, plain in cases:
             got, ref = kern(), plain()
             torch.cuda.synchronize()
@@ -343,10 +352,14 @@ def phase_chain_kernels(torch, nkt, bratu2d):
             reps = _reps(steps)
             t, p = _time_ms(kern, reps), _time_ms(plain, reps)
             td, pd = _device_ms(kern, reps), _device_ms(plain, reps)
+            plan = k._tile_plan(key, n, dt, steps)
             log(f"[chain kernels] {tag}: {short} {key} steps={steps} "
                 f"bitwise equal, max|ref| {float(ref.abs().max()):.3e}; per "
                 f"call {t:.4f} ms vs plain {p:.4f} ms (CUDA events); device "
-                f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
+                f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}; "
+                f"{plan.passes(steps)} pass(es), tile {plan.tile_h}x"
+                f"{plan.tile_w}, S {plan.steps_per_pass}, smem "
+                f"{plan.smem_bytes} B, {plan.threads()} threads")
             if n == N and dt == torch.float32 and steps in (CHAIN[0], 16):
                 timed[key] = (td if td is not None else t,
                               pd if pd is not None else p)
@@ -703,6 +716,7 @@ def phase_breakdown(torch, nkt, bratu2d):
     alone, and the device busy time of each whole solve (no asserts)."""
     from newtonkrylov_tpu_torch import df32
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
     from newtonkrylov_tpu_torch.precond import chebyshev
 
     p = bratu2d.default_config(N, lam=LAM)
@@ -737,8 +751,10 @@ def phase_breakdown(torch, nkt, bratu2d):
     for tag, run in (("flagship", lambda: phase_flagship(torch, nkt, bratu2d, "profiled")),
                      ("cheb-pcg", lambda: phase_cheb(torch, nkt, bratu2d, N, "profiled")),
                      ("aligned", lambda: phase_aligned(torch, nkt, bratu2d, "profiled"))):
+        k.reset_launch_counts()
+        counts = {}
         t0 = time.perf_counter()
-        by_name, busy_us = _profile(run)
+        by_name, busy_us = _profile(run, counts)
         wall = time.perf_counter() - t0
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         log(f"[breakdown] {tag} solve under the profiler: wall {wall:.3f} s, "
@@ -746,6 +762,16 @@ def phase_breakdown(torch, nkt, bratu2d):
             f"({100 * busy_us / 1e6 / wall:.1f}% of wall)")
         for name, us in top:
             log(f"[breakdown]   {us / 1e3:9.2f} ms  {name[:90]}")
+        if tag == "cheb-pcg":  # K4 by its kernel's name, per launch
+            k4_us = sum(us for name, us in by_name.items() if "cheb_pass" in name)
+            launches = sum(c for name, c in counts.items() if "cheb_pass" in name)
+            calls = k.LAUNCHES["chebyshev_apply"]
+            log(f"[breakdown] cheb-pcg: K4 cheb_pass {k4_us / 1e3:.2f} ms of "
+                f"device time over {calls} calls ({launches} cheb_pass "
+                f"launches seen by the profiler): "
+                f"{_fmt_ms(k4_us / 1e3 / launches if launches else None)} "
+                f"per launch, {100 * k4_us / busy_us if busy_us else 0:.1f}% "
+                f"of device busy")
 
 
 def _kernel_class(name):

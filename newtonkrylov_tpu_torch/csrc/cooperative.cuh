@@ -1,7 +1,7 @@
-// The cooperative persistent skeleton shared by csrc/chain2d.cu and
-// csrc/chain_probe.cu: one launch of as many blocks as the SMs hold at once,
-// grid-stride loops over an (R, C) row-major array, steps separated by
-// cooperative_groups::this_grid().sync().
+// The cooperative persistent skeleton of csrc/chain_probe.cu (K6, the probe
+// that prices a step through memory and a grid sync): one launch of as many
+// blocks as the SMs hold at once, grid-stride loops over an (R, C) row-major
+// array, steps separated by cooperative_groups::this_grid().sync().
 
 #pragma once
 

@@ -24,8 +24,10 @@ through it:
 * K2 :func:`bratu_residual` — ``lap(u) + scale·eᵘ`` (replaces
   ``bratu_residual_pallas``).
 
-Three chained kernels, k dependent 5-point steps in one launch (CUDA in
-``csrc/chain2d.cu``); no residual reaches them, so they are plain functions:
+Three chained kernels, k dependent 5-point steps in one call (CUDA in
+``csrc/chain2d.cu`` on the overlapped-tile skeleton of ``csrc/tiled.cuh``:
+passes of up to S steps held on chip, one launch each, cut by
+:func:`_tile_plan`); no residual reaches them, so they are plain functions:
 
 * K3 :func:`stencil_jvp_chain` — k steps ``x ← s·mask·(lap x + w x)``
   (replaces ``stencil_jvp_chain_pallas``);
@@ -37,12 +39,15 @@ Three chained kernels, k dependent 5-point steps in one launch (CUDA in
 On a CPU tensor each op runs its plain PyTorch version (the ``*_xla``
 functions, which mirror the Pallas bodies operation for operation); on a
 CUDA tensor it launches the CUDA kernel or raises.  ``LAUNCHES`` counts
-kernel launches, and only those.
+the calls that launched a kernel, and only those: one per call, whatever
+the number of passes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -241,18 +246,20 @@ def _check(name, n, *arrays):
 
 
 _VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PLAN = [_INT] * 6  # a TilePlan: tile_h, tile_w, S, smem, rows, cols
 # nk_<kernel>: (source in csrc/, argument types).  Every function takes its
-# array pointers, then R, C, n, its scalars, is_double and the stream, and
-# returns the cudaError_t of the launch.
+# array pointers (the chained kernels then a scratch pointer), then R, C, n,
+# its scalars (the chained kernels then their plan), is_double and the
+# stream, and returns the cudaError_t of its launches.
 _SIGNATURES = {
     "stencil_jvp": ("stencil2d", [_VP] * 3 + [_INT] * 3 + [_INT, _VP]),
     "bratu_residual": ("stencil2d", [_VP] * 2 + [_INT] * 3 + [_DBL, _INT, _VP]),
     "stencil_jvp_chain": ("chain2d", [_VP] * 4 + [_INT] * 3
-                          + [_INT, _DBL, _INT, _VP]),
+                          + [_INT, _DBL] + _PLAN + [_INT, _VP]),
     "stencil_chain_probe": ("chain2d", [_VP] * 4 + [_INT] * 3
-                            + [_INT, _INT, _VP]),
-    "chebyshev_apply": ("chain2d", [_VP] * 7 + [_INT] * 3
-                        + [_INT, _INT, _VP]),
+                            + [_INT] + _PLAN + [_INT, _VP]),
+    "chebyshev_apply": ("chain2d", [_VP] * 5 + [_INT] * 3
+                        + [_INT] + _PLAN + [_INT, _VP]),
 }
 _BOUND: dict = {}
 
@@ -268,19 +275,23 @@ def _kernel(name: str):
     return fn
 
 
-def _launch(name: str, n: int, inputs, *scalars, extra=(), scratch=0):
+def _launch(name: str, n: int, inputs, *scalars, extra=(), scratch=None):
     """Launch ``nk_<name>`` on the current stream of the inputs' device:
-    ``(inputs..., extra..., out, scratch..., R, C, n, scalars...,
-    is_double, stream)``.  ``inputs`` are layout arrays; ``extra`` are other
-    device arrays of the inputs' dtype, checked by the caller."""
+    ``(inputs..., extra..., out, [work,] R, C, n, scalars..., is_double,
+    stream)``.  ``inputs`` are layout arrays; ``extra`` are other device
+    arrays of the inputs' dtype, checked by the caller.  A chained kernel
+    takes ``work``, ``scratch`` arrays of the layout in one buffer (a null
+    pointer for none); the others pass ``scratch=None``."""
     R, C = _check(name, n, *inputs)
     out = torch.empty_like(inputs[0])
-    work = [torch.empty_like(out) for _ in range(scratch)]
+    ptrs = [a.data_ptr() for a in (*inputs, *extra, out)]
+    if scratch is not None:
+        work = out.new_empty((scratch, R, C)) if scratch else None
+        ptrs.append(work.data_ptr() if scratch else None)
     fn = _kernel(name)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*(a.data_ptr() for a in (*inputs, *extra, out, *work)),
-                R, C, n, *scalars, _C_DTYPES[out.dtype], stream)
+        rc = fn(*ptrs, R, C, n, *scalars, _C_DTYPES[out.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
                            f"(cudaError_t {rc})")
@@ -325,28 +336,112 @@ def _(u, n, scale):
     return torch.empty_like(u)
 
 
+class TilePlan(NamedTuple):
+    """How a chained kernel (K3, K4, K5) cuts a call into passes and tiles
+    (``csrc/tiled.cuh``): output tiles of ``tile_h × tile_w`` cells, each
+    computed by one block from a region of its tile and a halo of
+    ``steps_per_pass`` (S) cells on each side; one thread per micro-tile of
+    ``rows × cols`` cells of the region; ``smem_bytes`` of dynamic shared
+    memory (two buffers of the micro-tiles' edges)."""
+
+    tile_h: int
+    tile_w: int
+    steps_per_pass: int
+    smem_bytes: int
+    rows: int
+    cols: int
+
+    def region(self):
+        """(H, W): the rows and columns a block holds."""
+        return (self.tile_h + 2 * self.steps_per_pass,
+                self.tile_w + 2 * self.steps_per_pass)
+
+    def block(self):
+        """(threads across, threads down)."""
+        H, W = self.region()
+        return W // self.cols, H // self.rows
+
+    def threads(self) -> int:
+        bx, by = self.block()
+        return bx * by
+
+    def passes(self, steps: int) -> int:
+        """Launches of a call of ``steps`` steps (one for 0 steps)."""
+        return max(1, -(-steps // max(self.steps_per_pass, 1)))
+
+    def grid(self, R: int, C: int):
+        """(tiles across, tiles down) of an (R, C) array."""
+        return -(-C // self.tile_w), -(-R // self.tile_h)
+
+
+# Region per kernel and dtype: (W columns, H rows, rows and columns of a
+# thread's micro-tile, the most steps a pass runs), each the fastest of the
+# candidates timed at 2048² on an H100 (PERF.md §6).  Each thread holds 4
+# values a cell (K4: r, d, x, diag) or 2 (K3, K5: x, w − 4) in registers;
+# the shared memory holds the micro-tiles' edges twice.  csrc/chain2d.cu
+# builds each kernel for its region alone (ChainShape, ChebShape) and
+# refuses a plan of another.
+_REGIONS = {
+    ("chebyshev_apply", torch.float32): (128, 80, 4, 4, 16),
+    ("chebyshev_apply", torch.float64): (64, 64, 4, 2, 8),
+    ("chain", torch.float32): (128, 128, 8, 4, 16),
+    ("chain", torch.float64): (128, 96, 6, 4, 16),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(name: str, n: int, dtype, steps: int) -> TilePlan:
+    """The plan of a call of chained kernel ``name`` on the aligned layout of
+    interior n² in ``dtype``, ``steps`` steps (K4: the degree): its passes
+    share the steps evenly, S = ⌈steps / passes⌉ (0 for no steps), and the
+    region of ``_REGIONS`` keeps its size, so the tile is the region less
+    2S.  ``n`` only names the layout: the ragged last tiles of (R, C) are
+    masked in the kernel.  Cached: the Krylov loop asks for the same plan
+    on every preconditioner apply."""
+    _dims(n)
+    key = "chebyshev_apply" if name == "chebyshev_apply" else "chain"
+    W, H, rows, cols, most = _REGIONS[(key, dtype)]
+    passes = max(1, -(-steps // most))
+    S = -(-steps // passes)
+    edges = 2 * (W // cols) * (H + (H // rows) * cols)  # values per buffer
+    return TilePlan(H - 2 * S, W - 2 * S, S, 2 * edges * dtype.itemsize,
+                    rows, cols)
+
+
+def _run_chained(name, n, inputs, *scalars, steps, scratch, extra=()):
+    """Launch chained kernel ``name`` under :func:`_tile_plan`'s plan with
+    ``scratch`` arrays of the layout, which only a call of more than one
+    pass needs."""
+    plan = _tile_plan(name, n, inputs[0].dtype, steps)
+    return _launch(name, n, inputs, *scalars, *plan, extra=extra,
+                   scratch=scratch if plan.passes(steps) > 1 else 0)
+
+
 def stencil_jvp_chain(v, w, n: int, k: int, scale: float = 1.0):
     """K3: k chained matvecs ``x ← scale·(J x)`` from ``x = v`` in one
-    launch (see :func:`stencil_jvp_chain_xla` for the exact arithmetic).
-    ``v`` and ``w`` are aligned-layout arrays; ``v`` is not modified."""
+    call of ⌈k/S⌉ launches (see :func:`stencil_jvp_chain_xla` for the exact
+    arithmetic).  ``v`` and ``w`` are aligned-layout arrays; ``v`` is not
+    modified."""
     _check_steps("stencil_jvp_chain", "k", k)
     if _on_cpu(v):
         return stencil_jvp_chain_xla(v, w, n, k, scale)
-    return _launch("stencil_jvp_chain", n, (v, w), int(k), float(scale),
-                   scratch=1)
+    return _run_chained("stencil_jvp_chain", n, (v, w), int(k), float(scale),
+                        steps=k, scratch=1)
 
 
 def stencil_chain_probe(v, w, n: int, k: int):
-    """K5: k unmasked probe steps in one launch (see
+    """K5: k unmasked probe steps in one call of ⌈k/S⌉ launches (see
     :func:`stencil_chain_probe_xla`); k must be even."""
     if _on_cpu(v):
         return stencil_chain_probe_xla(v, w, n, k)
     _check_steps("stencil_chain_probe", "k", k, even=True)
-    return _launch("stencil_chain_probe", n, (v, w), int(k), scratch=1)
+    return _run_chained("stencil_chain_probe", n, (v, w), int(k), steps=k,
+                        scratch=1)
 
 
 def chebyshev_apply(r, diag, scal, n: int, degree: int):
-    """K4: ``x = p_degree(A)·r`` in one launch (see
+    """K4: ``x = p_degree(A)·r`` in one call of ⌈degree/S⌉ launches — one
+    at the preconditioner's degree 16 in f32 (see
     :func:`chebyshev_apply_xla`).  ``r`` and ``diag`` are aligned-layout
     arrays, ``scal = [θ, δ, o]`` a device 3-vector of their dtype, read by
     the kernel itself: no host synchronisation.  ``r`` is not modified."""
@@ -358,5 +453,5 @@ def chebyshev_apply(r, diag, scal, n: int, degree: int):
         raise ValueError(f"chebyshev_apply: scal must be a contiguous (3,) "
                          f"tensor of {r.dtype} on {r.device}, got "
                          f"{tuple(scal.shape)} {scal.dtype} on {scal.device}")
-    return _launch("chebyshev_apply", n, (r, diag), int(degree), extra=(scal,),
-                   scratch=3)
+    return _run_chained("chebyshev_apply", n, (r, diag), int(degree),
+                        steps=degree, scratch=4, extra=(scal,))

@@ -129,30 +129,50 @@ def _bitwise(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("n", [64, 512, 520, 2048])
 def test_chain_kernels_match_plain(cuda_device, dtype, n):
     """K3, K5 and K4 (on the probed interval of a Bratu Jacobian) bitwise
-    equal to their plain versions, one launch per call."""
+    equal to their plain versions at every tiling edge: several tiles with
+    ragged last ones (R = n + 8 is no tile multiple), random nonzero ghosts
+    and apron (the row-0 and column wraps), one pass and several (K4 degree
+    40, K3/K5 k = 200), odd and even k, no steps; one count per call."""
     gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
-    v, w = (_rand(n, cuda_device, dtype, gen, absval=a) for a in (False, True))
+    R, C = n + 8, tk.round_up(n + 2, 128)
+    v, w, ghosts = (torch.randn((R, C), generator=gen, device=cuda_device,
+                                dtype=dtype) for _ in range(3))
+    w = w.abs() + 0.1
     J = nkt.JacobianOperator(tb.residual_scaled,
                              tb.initial_guess(n, dtype, cuda_device),
                              tb.default_config(n, 5.0))
     o, d = probe_5point(J)
     theta, delta = _cheb_bounds(o, d.min(), d.max(), None, 1 / 300, dtype)
-    diag, scal = tk.aligned_wrap(d / o), torch.stack([theta, delta, o])
+    interior = tk.aligned_mask(n, torch.bool, cuda_device)
+    diag = torch.where(interior, tk.aligned_wrap(d / o), ghosts)
+    scal = torch.stack([theta, delta, o])
     tk.reset_launch_counts()
-    for k in (1, 2, 7, 40):
+    for k in (0, 1, 2, 7, 40, 200):
         assert _bitwise(tk.stencil_jvp_chain(v, w, n, k, 0.125),
-                        tk.stencil_jvp_chain_xla(v, w, n, k, 0.125))
-    for k in (2, 40):
+                        tk.stencil_jvp_chain_xla(v, w, n, k, 0.125)), k
+    for k in (2, 200):
         assert _bitwise(tk.stencil_chain_probe(v, w, n, k),
-                        tk.stencil_chain_probe_xla(v, w, n, k))
-    for degree in (1, 4, 16):
+                        tk.stencil_chain_probe_xla(v, w, n, k)), k
+    for degree in (0, 1, 4, 16, 40):
         assert _bitwise(tk.chebyshev_apply(v, diag, scal, n, degree),
-                        tk.chebyshev_apply_xla(v, diag, scal, n, degree))
-    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0), "stencil_jvp_chain": 4,
-                           "stencil_chain_probe": 2, "chebyshev_apply": 3}
+                        tk.chebyshev_apply_xla(v, diag, scal, n, degree)), degree
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0), "stencil_jvp_chain": 6,
+                           "stencil_chain_probe": 2, "chebyshev_apply": 5}
+
+
+def test_chain_kernels_raise_on_refused_plan(cuda_device):
+    """A plan the kernels do not take (K3 is built for 8 rows per thread,
+    not 5) raises with the cudaError_t of the refused launch; nothing is counted."""
+    n = 64
+    v = tk.aligned_wrap(torch.ones((n, n), device=cuda_device))
+    plan = tk._tile_plan("stencil_jvp_chain", n, torch.float32, 4)._replace(rows=5)
+    tk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        tk._launch("stencil_jvp_chain", n, (v, v), 4, 1.0, *plan, scratch=1)
+    assert tk.LAUNCHES["stencil_jvp_chain"] == 0
 
 
 def test_chain_kernels_reject_bad_inputs(cuda_device):

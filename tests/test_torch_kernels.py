@@ -246,3 +246,36 @@ def test_chebyshev_apply_matches_pallas(degree, dtype):
     got = tk.chebyshev_apply(rt, dt_, scal, n, degree)
     assert got.dtype == dtype
     _assert_close(got, ref, dtype)
+
+
+# -- the launch plan of the chained kernels (csrc/tiled.cuh) -------------------
+
+@pytest.mark.parametrize("name,steps", [("chebyshev_apply", 16),
+                                        ("stencil_jvp_chain", 200)],
+                         ids=["K4-degree16", "K3-k200"])
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [64, 520, 2048])
+def test_tile_plan_fits_and_covers(n, dtype, name, steps):
+    """_tile_plan: shared memory within the 232,448 bytes a block may have
+    and equal to two buffers of the micro-tiles' edges; a block of whole
+    warps (the kernels test the interior warp by warp), ≤ 1024 threads;
+    tiles that cover all of (R, C); S ≥ 1 steps a pass
+    and enough passes for the call — one for K4 at degree 16 in f32."""
+    plan = tk._tile_plan(name, n, dtype, steps)
+    R, C = n + 8, tk.round_up(n + 2, 128)
+    H, W = plan.region()
+    itemsize = 4 if dtype == torch.float32 else 8
+    bx, by = plan.block()
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes == 2 * 2 * bx * (H + by * plan.cols) * itemsize
+    assert H % plan.rows == 0 and W % plan.cols == 0
+    assert plan.threads() % 32 == 0 and plan.threads() <= 1024
+    gx, gy = plan.grid(R, C)
+    assert plan.tile_h >= 1 and plan.tile_w >= 1
+    assert gx * plan.tile_w >= C > (gx - 1) * plan.tile_w
+    assert gy * plan.tile_h >= R > (gy - 1) * plan.tile_h
+    assert plan.steps_per_pass >= 1
+    assert plan.passes(steps) * plan.steps_per_pass >= steps
+    assert (plan.passes(steps) - 1) * plan.steps_per_pass < steps
+    if name == "chebyshev_apply" and dtype == torch.float32:
+        assert plan.passes(steps) == 1
