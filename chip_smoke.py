@@ -42,15 +42,29 @@ Phases (each raises on failure; the script exits non-zero after any):
     driver's basis of 100) at 2048², and convection–diffusion (c = 2) at
     512² with DST-preconditioned full GMRES, f32 Krylov and the df32
     acceptance residual;
-11. warm repeats (the Bratu paths at 2048², Cheb-PCG also at 1024², its
-    lane's own size, convection–diffusion at 512²), the aligned and the
-    convection–diffusion solves at 64² against the same solves on the CPU,
-    and a breakdown: each component's cost alone and each solve's device
+11. the multigrid and line-relaxation paths: convection–diffusion at
+    c = 25 (``bench.py``'s convection lanes: GMRES(80), f32 Krylov + df32)
+    with ``multigrid2d_general()`` at 512² and 256² and ``adi(4)`` at 256²
+    (PCR line solves on the card), each solved with its f64 true residual
+    and max|u − u*| ≤ 1e-6, MG-general in fewer inner iterations than ADI;
+    MG-PCG (``multigrid2d()``, rebuilt every outer) and two-grid
+    (``two_grid(8, precision="high")``, built once) on the flagship
+    configuration at 2048²; two-grid again with ``engine="pallas"``, where
+    every smoothing is one K4 launch (at least two per inner iteration);
+12. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
+    convection–diffusion at 512², MG-general at 512²), the
+    aligned and the convection–diffusion solves (c = 2, and ADI(4) and
+    MG-general at c = 25 on PCR) at 64² against the same solves on the CPU,
+    and breakdowns: each component's cost alone and each solve's device
     busy time under torch.profiler, with K4's device time per launch inside
-    the 2048² Cheb-PCG solve (measurements only).
+    the 2048² Cheb-PCG solve and, for MG-general at 512² and ADI(4) at
+    256², the host and device time and device events of one preconditioner
+    apply (measurements only).
 
-Launch counts are zeroed just before each of phases 6–10 and read just
-after; each kernel must have been launched on its path.  The last two lines
+Launch counts are zeroed just before each of phases 6–11 and read just
+after; each kernel must have been launched on its path (the two-grid
+path's K4 count is logged on its own line; the JSON keeps the Cheb-PCG
+path's).  The last two lines
 are a JSON object of per-kernel results and the JSON status object.
 Without a CUDA device the script fails and prints no result.
 """
@@ -74,6 +88,13 @@ PROBE_N = 1024    # the JAX probe's default size (benchmarks/kernel_probe.py)
 PROBE_KS = 400    # its short chain: the K6 call the kernels JSON times
 CONVDIFF_N = 512  # the largest convection lane of bench.py (bench.py:333)
 CG_FLAGSHIP = (6, 7)  # the CG flagship's outer/inner counts at 2048²
+CONV_C = 25.0     # the convection-dominated lanes of bench.py (bench.py:284)
+# outer/inner counts of the JAX package's lanes (BENCH_r05.json; TPU counts,
+# not times or targets): the convection lanes by (preconditioner, n), and
+# two-grid at 2048²
+CONV_REF = {("adi", 256): (10, 441), ("mg-general", 256): (8, 27),
+            ("mg-general", 512): (7, 29)}
+TWO_GRID_REF = (8, 28)
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -108,9 +129,14 @@ def _time_ms(fn, reps=REPS):
 
 def _profile(fn, counts=None):
     """(device µs by kernel name, total device µs) of one call of ``fn``,
-    from torch.profiler's CUDA activity; empty when the profiler records no
-    device time.  ``counts``, a dict, receives the events by kernel name."""
+    from torch.profiler's CUDA activity: the durations of the events that
+    ran on the device (kernels, copies, fills), summed by name; empty when
+    the profiler records no device time.  ``counts``, a dict, receives the
+    number of events by name.  The profiler's raw events are read directly:
+    turning them into ``FunctionEvent``s (``events()``, ``key_averages()``)
+    costs ~100 µs an event, minutes for a solve of a million launches."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -118,14 +144,13 @@ def _profile(fn, counts=None):
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us
-            if counts is not None:
-                counts[e.key] = counts.get(e.key, 0) + e.count
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        by_name[name] = by_name.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
     return by_name, sum(by_name.values())
 
 
@@ -509,10 +534,11 @@ def phase_aligned_small(torch, nkt, bratu2d):
         raise AssertionError("aligned 64² solve on the card disagrees with the CPU")
 
 
-def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg"):
+def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once"):
     """The flagship configuration at n² with preconditioner factory ``M``:
-    f32 Krylov, df32 acceptance residual, ``M`` built once at u₀.  Gated on
-    ``solved`` and the f64 true residual; returns the NewtonInfo."""
+    f32 Krylov, df32 acceptance residual, ``M`` built once at u₀ (or every
+    outer, ``refresh="outer"``).  Gated on ``solved`` and the f64 true
+    residual; returns the NewtonInfo."""
     p = bratu2d.default_config(n, lam=LAM)
     u0 = bratu2d.initial_guess(n, dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
@@ -524,7 +550,7 @@ def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg"):
         bratu2d.residual_scaled, u0.to(torch.float64), p,
         algo=algo, tol_rel=1e-8, krylov_dtype=torch.float32,
         residual_df=bratu2d.residual_scaled_df,
-        max_niter=20, M=M, precond_refresh="once",
+        max_niter=20, M=M, precond_refresh=refresh,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -563,26 +589,25 @@ def phase_gmres_flagship(torch, nkt, bratu2d, pass_name):
     return info
 
 
-def _convdiff_solve(torch, nkt, n, device, refined):
-    """Convection–diffusion (c = 2) from the zero start with the JAX
-    package's recipe: DST-preconditioned full GMRES, exact Newton.
-    ``refined``: f32 Krylov + df32 acceptance residual to 1e-8 (the
-    production path); else f64 throughout to 1e-10.  Returns (u, info, wall
-    seconds, ‖F(u)‖ and ‖F(u₀)‖ in f64, max|u − u*|)."""
-    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+def _convdiff_solve(torch, nkt, n, device, M, c, refined, krylov, max_niter=15):
+    """Convection–diffusion at ``c`` from the zero start: GMRES with the
+    preconditioner factory ``M`` rebuilt every outer, exact Newton, the
+    GMRES options ``krylov``, at most ``max_niter`` outers.  ``refined``:
+    f32 Krylov + df32 acceptance residual to 1e-8 (the production path);
+    else f64 throughout to 1e-10.  Returns (u, info, wall seconds, ‖F(u)‖
+    and ‖F(u₀)‖ in f64, max|u − u*|)."""
     from newtonkrylov_tpu_torch.problems import convdiff2d
 
     f64 = torch.float64
-    p = convdiff2d.default_config(n, dtype=f64, device=device)
+    p = convdiff2d.default_config(n, c=c, dtype=f64, device=device)
     u0 = convdiff2d.initial_guess(n, f64, device)
-    kw = dict(algo="gmres", M=fft_poisson(), forcing=None)
+    kw = dict(algo="gmres", M=M, forcing=None, krylov_kwargs=krylov,
+              max_niter=max_niter)
     if refined:
-        kw.update(krylov_kwargs={"restart": None, "itmax": 600},
-                  krylov_dtype=torch.float32,
-                  residual_df=convdiff2d.residual_scaled_df,
-                  tol_rel=1e-8, max_niter=25)
+        kw.update(krylov_dtype=torch.float32,
+                  residual_df=convdiff2d.residual_scaled_df, tol_rel=1e-8)
     else:
-        kw.update(krylov_kwargs={"restart": None, "itmax": 150}, tol_rel=1e-10)
+        kw.update(tol_rel=1e-10)
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -596,11 +621,27 @@ def _convdiff_solve(torch, nkt, n, device, refined):
     return u, info, wall, norm(u), norm(u0), float((u - us).abs().max())
 
 
+def _gate_convdiff(torch, tag, n, u, info, fu, f0, err):
+    """``solved``, a finite (n, n) state, the f64 true residual
+    ≤ 1e-8·‖F₀‖ + 1e-12 and max|u − u*| ≤ 1e-6."""
+    if not bool(info.solved):
+        raise AssertionError(f"{tag}: solve did not converge")
+    if not (torch.isfinite(u).all() and tuple(u.shape) == (n, n)):
+        raise AssertionError(f"{tag}: solve returned a malformed state")
+    if not (fu <= 1e-8 * f0 + 1e-12 and err <= 1e-6):
+        raise AssertionError(f"{tag}: true residual or error above limit")
+
+
 def phase_convdiff(torch, nkt, pass_name):
-    """Convection–diffusion at 512² on the refined path.  Gates: ``solved``,
-    max|u − u*| ≤ 1e-6 and the f64 true residual ≤ 1e-8·‖F₀‖ + 1e-12."""
+    """Convection–diffusion (c = 2) at 512² on the refined path with the
+    JAX package's recipe: DST rebuilt every outer, full GMRES (itmax 600).
+    Gated by ``_gate_convdiff``."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
     n = CONVDIFF_N
-    u, info, wall, fu, f0, err = _convdiff_solve(torch, nkt, n, "cuda", True)
+    u, info, wall, fu, f0, err = _convdiff_solve(
+        torch, nkt, n, "cuda", fft_poisson(), 2.0, True,
+        {"restart": None, "itmax": 600}, max_niter=25)
     log(f"[convdiff {pass_name}] n={n} c=2 GMRES(full, itmax 600) + DST, f32 "
         f"Krylov + df32: solved={bool(info.solved)} "
         f"outer={info.stats.outer_iterations} "
@@ -608,19 +649,18 @@ def phase_convdiff(torch, nkt, pass_name):
         f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s  true "
         f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})  max|u - u*| "
         f"{err:.3e} (limit 1e-6)")
-    if not bool(info.solved):
-        raise AssertionError("convdiff solve did not converge")
-    if not (torch.isfinite(u).all() and tuple(u.shape) == (n, n)):
-        raise AssertionError("convdiff solve returned a malformed state")
-    if not (fu <= 1e-8 * f0 + 1e-12 and err <= 1e-6):
-        raise AssertionError("convdiff solve: true residual or error above limit")
+    _gate_convdiff(torch, "convdiff", n, u, info, fu, f0, err)
     return info, wall
 
 
 def phase_convdiff_small(torch, nkt):
-    """The f64 convection–diffusion GMRES solve at 64² on the card and on
-    the CPU: both solved, the same counts, solutions within 1e-10."""
-    runs = {dev: _convdiff_solve(torch, nkt, 64, dev, False)
+    """The f64 convection–diffusion GMRES solve (c = 2, DST, full GMRES) at
+    64² on the card and on the CPU: both solved, the same counts, solutions
+    within 1e-10."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    runs = {dev: _convdiff_solve(torch, nkt, 64, dev, fft_poisson(), 2.0, False,
+                                 {"restart": None, "itmax": 150})
             for dev in ("cuda", "cpu")}
     (ug, ig, *_, eg), (uc, ic, *_, ec) = runs["cuda"], runs["cpu"]
     diff = float((ug.cpu() - uc).abs().max())
@@ -632,6 +672,59 @@ def phase_convdiff_small(torch, nkt):
             and ig.stats.inner_iterations == ic.stats.inner_iterations)
     if not (bool(ig.solved) and bool(ic.solved) and same and diff <= 1e-10):
         raise AssertionError("convdiff 64² solve on the card disagrees with the CPU")
+
+
+def _conv_factory(tag, engine="auto"):
+    """The convection lanes' preconditioner factories, by tag."""
+    from newtonkrylov_tpu_torch.mg import multigrid2d_general
+    from newtonkrylov_tpu_torch.precond import adi
+
+    if tag == "adi":
+        return adi(4, engine=engine)
+    return multigrid2d_general(engine=engine)
+
+
+def phase_conv25(torch, nkt, tag, n, pass_name):
+    """A convection lane of bench.py (``bench.py:284-347``): c = 25 from
+    u₀ = 0, GMRES(80) with ``itmax=600``, ``adi(4)`` or
+    ``multigrid2d_general()`` rebuilt every outer (PCR line solves on the
+    card), f32 Krylov + df32 to 1e-8, ``max_niter=15``.  Gated by
+    ``_gate_convdiff``; returns (info, wall)."""
+    u, info, wall, fu, f0, err = _convdiff_solve(
+        torch, nkt, n, "cuda", _conv_factory(tag), CONV_C, True,
+        {"restart": 80, "itmax": 600})
+    ref = CONV_REF[tag, n]
+    log(f"[convdiff c=25 {tag} {pass_name}] n={n} GMRES(80) + {tag}, f32 "
+        f"Krylov + df32: solved={bool(info.solved)} "
+        f"outer={info.stats.outer_iterations} "
+        f"inner={info.stats.inner_iterations} (the JAX package's recorded "
+        f"{ref[0]}/{ref[1]}, BENCH_r05.json, a TPU count) "
+        f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s  true "
+        f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})  max|u - u*| "
+        f"{err:.3e} (limit 1e-6)")
+    _gate_convdiff(torch, f"convdiff c=25 {tag} {n}", n, u, info, fu, f0, err)
+    return info, wall
+
+
+def phase_conv25_small(torch, nkt):
+    """ADI(4) and MG-general at c = 25, 64², f64, full GMRES to 1e-10 with
+    the line solver set to PCR on both devices, on the card and on the CPU:
+    both solved, the same counts, solutions within 1e-10."""
+    for tag in ("adi", "mg-general"):
+        runs = {dev: _convdiff_solve(torch, nkt, 64, dev, _conv_factory(tag, "pcr"),
+                                     CONV_C, False, {"restart": None, "itmax": 300})
+                for dev in ("cuda", "cpu")}
+        (ug, ig, *_, eg), (uc, ic, *_, ec) = runs["cuda"], runs["cpu"]
+        diff = float((ug.cpu() - uc).abs().max())
+        log(f"[convdiff c=25 {tag} 64, pcr] cuda outer/inner "
+            f"{ig.stats.outer_iterations}/{ig.stats.inner_iterations}  cpu "
+            f"{ic.stats.outer_iterations}/{ic.stats.inner_iterations}  "
+            f"max|u_cuda - u_cpu| {diff:.3e}  max|u - u*| {eg:.3e}")
+        same = (ig.stats.outer_iterations == ic.stats.outer_iterations
+                and ig.stats.inner_iterations == ic.stats.inner_iterations)
+        if not (bool(ig.solved) and bool(ic.solved) and same and diff <= 1e-10):
+            raise AssertionError(f"convdiff c=25 {tag} 64² on the card disagrees "
+                                 "with the CPU")
 
 
 def phase_cheb(torch, nkt, bratu2d, n, pass_name):
@@ -647,6 +740,31 @@ def phase_cheb(torch, nkt, bratu2d, n, pass_name):
             f"{info.stats.outer_iterations}/{info.stats.inner_iterations} "
             f"beside the JAX package's recorded {CHEB_REF_1024[0]}/"
             f"{CHEB_REF_1024[1]} (BENCH_r05.json; a count, not a time)")
+    return info
+
+
+def phase_mg_pcg(torch, nkt, bratu2d, pass_name):
+    """The MG-PCG lane of bench.py (``bench.py:234``): the flagship with
+    ``multigrid2d()`` rebuilt every outer."""
+    from newtonkrylov_tpu_torch.mg import multigrid2d
+
+    return _df32_solve(torch, nkt, bratu2d, N, multigrid2d(),
+                       f"mg-pcg {pass_name}", refresh="outer")
+
+
+def phase_two_grid(torch, nkt, bratu2d, engine, pass_name):
+    """The two-grid lane of bench.py (``bench.py:240``): the flagship with
+    ``two_grid(8, precision="high")`` built once; ``engine="pallas"`` runs
+    each smoothing as one K4 launch."""
+    from newtonkrylov_tpu_torch.precond import two_grid
+
+    info = _df32_solve(torch, nkt, bratu2d, N,
+                       two_grid(8, precision="high", engine=engine),
+                       f"two-grid {engine} {pass_name}")
+    log(f"[two-grid {engine} {pass_name}] n={N} outer/inner "
+        f"{info.stats.outer_iterations}/{info.stats.inner_iterations} beside "
+        f"the JAX package's recorded {TWO_GRID_REF[0]}/{TWO_GRID_REF[1]} "
+        f"(BENCH_r05.json, engine \"xla\"; a TPU count)")
     return info
 
 
@@ -837,6 +955,78 @@ def phase_convdiff_breakdown(torch, nkt, warm_wall):
         log(f"[breakdown]   {us / 1e3:9.2f} ms  {name[:90]}")
 
 
+def _solve_profile(torch, tag, run, warm_wall):
+    """One solve under the profiler: its device busy time against its
+    unprofiled wall ``warm_wall``, its device events and the six costliest
+    kernels (no asserts)."""
+    counts = {}
+    t0 = time.perf_counter()
+    by_name, busy_us = _profile(run, counts)
+    wall = time.perf_counter() - t0
+    log(f"[breakdown] {tag} solve under the profiler: wall {wall:.3f} s, "
+        f"device busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / warm_wall:.1f}% "
+        f"of its unprofiled wall {warm_wall:.3f} s; {sum(counts.values())} "
+        f"device events")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[breakdown]   {us / 1e3:9.2f} ms  {100 * us / busy_us:5.1f}%  "
+            f"{counts[name]:8d} x  {name[:80]}")
+
+
+def phase_slice_breakdown(torch, nkt, bratu2d, walls):
+    """Where the multigrid and line-relaxation solves spend their time
+    (measurements only, no gates).  For MG-general at 512² and ADI(4) at
+    256², c = 25, linearized at u* in f32: host time per linearization, per
+    probe and per factory build (probe + hierarchy + smoothers); per
+    preconditioner apply the host time to issue it, its wall and its device
+    time, and the device events it launches.  Then the MG-general 512²,
+    ADI 256², MG-PCG and two-grid 2048² solves under the profiler, each
+    against its unprofiled wall in ``walls``."""
+    from newtonkrylov_tpu_torch.mg import probe_5point_general
+    from newtonkrylov_tpu_torch.problems import convdiff2d
+
+    for tag, n in (("mg-general", 512), ("adi", 256)):
+        f32 = torch.float32
+        p = convdiff2d.default_config(n, c=CONV_C, dtype=f32, device="cuda")
+        u = convdiff2d.manufactured_solution(n, f32, "cuda")
+
+        def linearize():
+            return nkt.JacobianOperator(convdiff2d.residual_scaled, u, p)
+
+        J = linearize()
+        factory = _conv_factory(tag)
+        log(f"[breakdown] {tag} {n}² c=25: linearize "
+            f"{_wall_s(torch, linearize) * 1e3:.2f} ms, probe (6 replays) "
+            f"{_wall_s(torch, lambda: probe_5point_general(J)) * 1e3:.2f} ms, "
+            f"factory build {_wall_s(torch, lambda: factory(J)) * 1e3:.2f} ms "
+            f"host wall")
+        M, r = factory(J), J.res
+        M(r)
+        host, wall = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M(r)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        counts = {}
+        _, dev_us = _profile(lambda: M(r), counts)
+        log(f"[breakdown] {tag} {n}² apply: host {1e3 * min(host):.2f} ms to "
+            f"issue, wall {1e3 * min(wall):.2f} ms (best of 3), device "
+            f"{dev_us / 1e3:.2f} ms and {sum(counts.values())} device events "
+            f"(one profiled apply)")
+    for tag, run, key in (
+            ("mg-general 512²", lambda: phase_conv25(torch, nkt, "mg-general", 512, "profiled"),
+             ("mg-general", 512)),
+            ("adi 256²", lambda: phase_conv25(torch, nkt, "adi", 256, "profiled"),
+             ("adi", 256)),
+            (f"mg-pcg {N}²", lambda: phase_mg_pcg(torch, nkt, bratu2d, "profiled"),
+             "mg-pcg"),
+            (f"two-grid {N}²", lambda: phase_two_grid(torch, nkt, bratu2d, "xla", "profiled"),
+             "two-grid")):
+        _solve_profile(torch, tag, run, walls[key])
+
+
 def main() -> int:
     import torch
 
@@ -860,15 +1050,17 @@ def main() -> int:
     # read just after, so every launch read is that path's.
     launches = {}
 
-    def counted(path, keys, run):
+    def counted(path, keys, run, into=launches):
+        """``run()`` with the counts zeroed before and read after; the
+        counts of ``keys`` go into ``into`` and must be positive."""
         for counters in (k, kp):
             counters.reset_launch_counts()
         out = run()
         now = {**k.LAUNCHES, **kp.LAUNCHES}
-        launches.update({key: now[key] for key in keys})
+        into.update({key: now[key] for key in keys})
         log(f"[launches] {path}: {now}")
         for key in keys:
-            if launches[key] <= 0:
+            if into[key] <= 0:
                 raise AssertionError(f"{key} was never launched by the {path}")
         return out
 
@@ -896,17 +1088,49 @@ def main() -> int:
             lambda: phase_gmres_flagship(torch, nkt, bratu2d, "run"))
     counted("convdiff solve", (), lambda: phase_convdiff(torch, nkt, "run"))
 
+    # the multigrid and line-relaxation slice (PCR line solves on the card);
+    # only two-grid with engine="pallas" runs a hand-written kernel (K4)
+    walls, conv = {}, {}
+    for tag, n in (("mg-general", 512), ("adi", 256), ("mg-general", 256)):
+        conv[tag, n], walls[tag, n] = counted(
+            f"convdiff c=25 {tag} {n}² solve", (),
+            lambda tag=tag, n=n: phase_conv25(torch, nkt, tag, n, "run"))
+    if not (conv["mg-general", 256].stats.inner_iterations
+            < conv["adi", 256].stats.inner_iterations):
+        raise AssertionError("MG-general took no fewer inner iterations than "
+                             "ADI(4) at 256²")
+    walls["mg-pcg"] = counted("mg-pcg solve", (), lambda: phase_mg_pcg(
+        torch, nkt, bratu2d, "run")).t
+    info_tg = counted("two-grid xla solve", (), lambda: phase_two_grid(
+        torch, nkt, bratu2d, "xla", "run"))
+    walls["two-grid"] = info_tg.t
+    tg_launches = {}  # the kernels JSON keeps K4's count on the Cheb-PCG path
+    info_tgp = counted("two-grid pallas solve", ("chebyshev_apply",),
+                       lambda: phase_two_grid(torch, nkt, bratu2d, "pallas", "run"),
+                       into=tg_launches)
+    k4_tg = tg_launches["chebyshev_apply"]
+    log(f"[launches] two-grid pallas solve: K4 {k4_tg} launches over "
+        f"{info_tgp.stats.inner_iterations} inner iterations "
+        f"({k4_tg / max(info_tgp.stats.inner_iterations, 1):.2f} per inner); "
+        f"outer/inner {info_tgp.stats.outer_iterations}/"
+        f"{info_tgp.stats.inner_iterations} beside engine xla's "
+        f"{info_tg.stats.outer_iterations}/{info_tg.stats.inner_iterations}")
+    if k4_tg < 2 * info_tgp.stats.inner_iterations:
+        raise AssertionError("K4 launched fewer than twice per inner iteration "
+                             "on the two-grid pallas path")
+
     # warm repeats (first-use costs paid), the lane's own size, the
     # small-size cross-checks and the breakdowns
-    phase_aligned(torch, nkt, bratu2d, "warm")
-    phase_flagship(torch, nkt, bratu2d, "warm")
     phase_cheb(torch, nkt, bratu2d, N, "warm")
     phase_cheb(torch, nkt, bratu2d, 1024, "run")
     _, warm_wall = phase_convdiff(torch, nkt, "warm")
     phase_aligned_small(torch, nkt, bratu2d)
     phase_convdiff_small(torch, nkt)
+    _, walls["mg-general", 512] = phase_conv25(torch, nkt, "mg-general", 512, "warm")
+    phase_conv25_small(torch, nkt)
     phase_breakdown(torch, nkt, bratu2d)
     phase_convdiff_breakdown(torch, nkt, warm_wall)
+    phase_slice_breakdown(torch, nkt, bratu2d, walls)
 
     pallas = "newtonkrylov_tpu/kernels/stencil2d.py"
     # kernel -> (source, replaced Pallas function, interior n, steps of the

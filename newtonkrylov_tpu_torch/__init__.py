@@ -8,8 +8,9 @@ default) and plain PCG, the Eisenstat–Walker forcing, df32 acceptance
 residuals, the DST-Poisson and Chebyshev preconditioners, and the
 aligned-layout residual whose matvec runs the hand-written CUDA stencil
 kernels of :mod:`.kernels.stencil2d`, which also holds the chained kernels
-(the Chebyshev apply among them); the convection–diffusion problem; and
-the chained-step cost probe of :mod:`.kernels.probe` with its measuring
+(the Chebyshev apply among them); the convection–diffusion problem; the
+multigrid (:mod:`.mg`), two-grid and ADI line-relaxation preconditioners;
+and the chained-step cost probe of :mod:`.kernels.probe` with its measuring
 script :mod:`.benchmarks.kernel_probe`.  Entry points that create tensors
 do so on the card unless the caller names a device.
 

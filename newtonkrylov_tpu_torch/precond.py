@@ -1,29 +1,38 @@
-"""Preconditioner factories for the Newton inner solves: the Chebyshev subset.
+"""Preconditioner factories for the Newton inner solves.
 
-Counterpart of the part of ``newtonkrylov_tpu/precond.py`` that builds
-:func:`chebyshev`.  A factory is invoked with the current
-:class:`~newtonkrylov_tpu_torch.operator.JacobianOperator` (every outer
-iteration, or once at u₀ with ``precond_refresh="once"``) and returns the
-apply ``r ↦ M⁻¹ r``.
+Counterpart of ``newtonkrylov_tpu/precond.py``.  A factory is invoked with
+the current :class:`~newtonkrylov_tpu_torch.operator.JacobianOperator`
+(every outer iteration, or once at u₀ with ``precond_refresh="once"``) and
+returns the apply ``r ↦ M⁻¹ r``.  Ported:
 
-Not ported yet: ``bounds="lanczos"`` (needs ``spectral.py``, ROADMAP.md
-Queue 1 item 19), the sharded form ``axis_names=`` (item 20), and the other
-factories of the JAX module — ``nested_krylov``, ``jacobi``,
-``banded_direct``, ``banded_lu``, ``ilu0``, ``thomas_solve``, ``pcr_solve``,
-``two_grid``, ``adi`` (item 14).
+* :func:`chebyshev` — a fixed polynomial in the operator; on a CUDA state
+  one launch of the hand-written kernel K4 per apply;
+* :func:`two_grid` — Chebyshev smoothing + a half-resolution DST solve,
+  bilinear transfers as matrix products;
+* :func:`adi` — Peaceman–Rachford alternating line relaxation on the
+  probed variable-coefficient stencil, for nonsymmetric
+  (convection-dominated) operators, on the tridiagonal solvers
+  :func:`thomas_solve` and :func:`pcr_solve`.
+
+Not ported yet: ``chebyshev(bounds="lanczos")`` (needs ``spectral.py``,
+ROADMAP.md Queue 1 item 19), the sharded forms ``axis_names=`` (item 20),
+and ``nested_krylov``, ``jacobi``, ``banded_direct``, ``banded_lu`` and
+``ilu0`` (item 14).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .kernels import stencil2d as K
 from .mg import _apply as _stencil_apply
-from .mg import probe_5point
+from .mg import _no_sharding, probe_5point, probe_5point_general
 
-__all__ = ["chebyshev"]
+__all__ = ["thomas_solve", "pcr_solve", "chebyshev", "two_grid", "adi"]
 
 
 def _resolve_cheb_bounds(bounds):
@@ -56,9 +65,14 @@ def _cheb_bounds(o, dmin, dmax, bounds, lo_frac, dtype):
         pd = (upper + lower) >= 0  # bulk on the positive side
         lo = torch.where(pd, torch.maximum(lower, lo_frac * upper), lower)
         hi = torch.where(pd, upper, torch.minimum(upper, lo_frac * lower))
+    return _center_radius(lo, hi)
+
+
+def _center_radius(lo, hi):
+    """(θ, δ) of the interval [lo, hi], δ kept positive for a degenerate
+    interval (constant-coefficient 1×1 corner cases)."""
     theta = 0.5 * (lo + hi)
     delta = 0.5 * (hi - lo)
-    # degenerate interval (constant-coefficient 1×1 corner cases)
     delta = torch.where(delta > 0, delta,
                         torch.clamp_min(1e-6 * torch.abs(theta), 1e-30))
     return theta, delta
@@ -117,10 +131,7 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
     """
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown engine {engine!r}")
-    if axis_names is not None:
-        raise NotImplementedError(
-            "sharded Chebyshev preconditioning (axis_names=) is not ported "
-            "yet (ROADMAP.md Queue 1, item 20)")
+    _no_sharding("Chebyshev preconditioning", axis_names)
     if bc != "dirichlet" or lanczos_k != 48:
         raise NotImplementedError(
             "chebyshev(bc=, lanczos_k=) act only on the Lanczos bounds and "
@@ -158,3 +169,295 @@ def _cheb_engine_apply(o, d, theta, delta, degree: int, engine: str) -> Callable
         return apply
 
     return _cheb_recurrence(lambda x: _stencil_apply(x, o, d), theta, delta, degree)
+
+
+def two_grid(
+    smoother_degree: int = 8,
+    *,
+    smoother_frac: float = 0.25,
+    engine: str = "xla",
+    precision: str = "highest",
+    shift: str = "mean",
+    smooth_bounds=None,
+    transfer: str = "matmul",
+) -> Callable:
+    """Factory: symmetric two-grid preconditioner — Chebyshev smoothing on
+    the fine grid and an exact DST Poisson solve at half resolution.  Per
+    apply:
+
+        z  = S r
+        z += P · DST⁻¹ · R (r − A z)
+        z += S (r − A z)
+
+    with S = p_k(A) on the oscillatory interval [frac·λ̂, λ̂] (Gershgorin λ̂;
+    ``smooth_bounds=(lo, hi)`` overrides).  Same operator model and probe as
+    :func:`~newtonkrylov_tpu_torch.mg.multigrid2d`; S and A are symmetric
+    and P ∝ Rᵀ, so M is symmetric and safe under CG.
+
+    ``transfer``: ``"matmul"`` (the bilinear pair as matrix products,
+    :func:`~newtonkrylov_tpu_torch.mg.transfer_matmul`), ``"bilinear"``
+    (the sliced pair and its transpose) or ``"nearest"`` (injection and
+    block mean).  ``engine`` is the smoother's, as in :func:`chebyshev`:
+    ``"pallas"`` runs K4 (two launches per apply), ``"xla"`` the plain
+    recurrence, ``"auto"`` K4 on a CUDA state.  The coarse solve is
+    :func:`~newtonkrylov_tpu_torch.fftprec.dst_poisson_solver` at
+    (n/2, m/2) with ``precision``.
+    """
+    from .fftprec import dst_poisson_solver
+    from .mg import (
+        _prolong, _prolong_bilinear, _restrict, _restrict_fw, transfer_matmul,
+    )
+
+    if transfer not in ("matmul", "bilinear", "nearest"):
+        raise ValueError(f"unknown transfer {transfer!r}")
+    if engine not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown engine {engine!r}")
+
+    def factory(J):
+        o, d = probe_5point(J)
+        n, m = d.shape
+        if n % 2 or m % 2:
+            raise ValueError(f"two_grid needs even grid sides, got {(n, m)}")
+
+        if transfer == "matmul":
+            P, R = transfer_matmul(n, m, d.dtype, precision="high",
+                                   device=d.device)
+        elif transfer == "bilinear":
+            P, R = _prolong_bilinear, _restrict_fw
+        else:
+            P, R = _prolong, _restrict
+
+        # smoother interval: the oscillatory part of the spectrum, which
+        # 2× coarsening cannot represent
+        if smooth_bounds is not None:
+            lo = torch.as_tensor(smooth_bounds[0], dtype=d.dtype, device=d.device)
+            hi = torch.as_tensor(smooth_bounds[1], dtype=d.dtype, device=d.device)
+        else:
+            r4 = 4.0 * torch.abs(o)
+            upper = torch.max(d) + r4
+            lower = torch.min(d) - r4
+            pd = (upper + lower) >= 0
+            lo = torch.where(pd, smoother_frac * upper, lower)
+            hi = torch.where(pd, upper, smoother_frac * lower)
+        theta, delta = _center_radius(lo, hi)
+        smooth = _cheb_engine_apply(o, d, theta, delta, smoother_degree, engine)
+
+        # coarse rediscretization of the Δx²-scaled operator: d = −4o + mass,
+        # the mass carries the h² scale and restricts with a 4× factor
+        mass = d + 4.0 * o
+        d_c = -4.0 * o + 4.0 * _restrict(mass)
+        dbar_c = torch.mean(d_c) if shift == "mean" else -4.0 * o
+        coarse = dst_poisson_solver(o, dbar_c, (n // 2, m // 2), d.dtype,
+                                    precision=precision)
+
+        def apply(r):
+            z = smooth(r)
+            r1 = r - _stencil_apply(z, o, d)
+            z = z + P(coarse(R(r1)))
+            r2 = r - _stencil_apply(z, o, d)
+            return z + smooth(r2)
+
+        return apply
+
+    return factory
+
+
+def _systems_first(axis: int, arrays):
+    """The arrays with the system index on axis 0 (a transposed view for
+    ``axis=1``)."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    return tuple(x.T for x in arrays) if axis == 1 else tuple(arrays)
+
+
+def thomas_solve(dl, d, du, b, axis: int = 0):
+    """Tridiagonal solve by the Thomas algorithm.
+
+    ``dl[i] = A[i, i-1]`` (dl[0] unused), ``d[i] = A[i, i]``,
+    ``du[i] = A[i, i+1]`` (du[-1] unused), along ``axis`` of 1-D or 2-D
+    arrays: a 2-D call solves one system per line of the other axis, all of
+    them in each step of the sweep (n sequential steps of whole-batch
+    elementwise ops, forward then back).
+    """
+    dl, d, du, b = _systems_first(axis if d.ndim == 2 else 0, (dl, d, du, b))
+    n = d.shape[0]
+    zero = torch.zeros_like(d[0])
+    # forward sweep: c'_i = du_i / (d_i - dl_i c'_{i-1}),
+    #                g_i  = (b_i - dl_i g_{i-1}) / (d_i - dl_i c'_{i-1})
+    cps, gs = [], []
+    cp, g = zero, zero
+    for i in range(n):
+        dli = dl[i] if i > 0 else zero
+        denom = d[i] - dli * cp
+        cp = du[i] / denom
+        g = (b[i] - dli * g) / denom
+        cps.append(cp)
+        gs.append(g)
+    # back substitution: x_i = g_i - c'_i x_{i+1}
+    xs = [None] * n
+    x = zero
+    for i in range(n - 1, -1, -1):
+        x = gs[i] - cps[i] * x
+        xs[i] = x
+    out = torch.stack(xs)
+    return out.T if (axis == 1 and out.ndim == 2) else out
+
+
+def pcr_solve(dl, d, du, b, axis: int = 0):
+    """Batched tridiagonal solve by parallel cyclic reduction.
+
+    ⌈log₂ n⌉ steps, each elementwise over the whole (n, batch) block; step k
+    eliminates the couplings at stride k:
+
+        α = −dl/d₍ᵢ₋ₖ₎,  γ = −du/d₍ᵢ₊ₖ₎
+        d ← d + α·du₍ᵢ₋ₖ₎ + γ·dl₍ᵢ₊ₖ₎,  b ← b + α·b₍ᵢ₋ₖ₎ + γ·b₍ᵢ₊ₖ₎
+        dl ← α·dl₍ᵢ₋ₖ₎,  du ← γ·du₍ᵢ₊ₖ₎
+
+    with out-of-range neighbours read as identity rows (d = 1, the rest 0);
+    then x = b/d.  About 3× Thomas's operations, in log₂ n steps instead of
+    n.  Stable for the diagonally dominant systems ADI produces.  Conventions
+    as :func:`thomas_solve`: 1-D arrays are one system, 2-D arrays are
+    solved along ``axis``.
+    """
+    single = d.ndim == 1
+    if single:
+        dl, d, du, b = (x[:, None] for x in (dl, d, du, b))
+        axis = 0
+    dl, d, du, b = _systems_first(axis, (dl, d, du, b))
+    n = d.shape[0]
+    # boundary semantics: dl[0] / du[-1] are unused couplings
+    dl = F.pad(dl[1:], (0, 0, 1, 0))
+    du = F.pad(du[:-1], (0, 0, 0, 1))
+
+    def down(x, k, fill):  # value at row i−k
+        return F.pad(x, (0, 0, k, 0), value=fill)[:n]
+
+    def up(x, k, fill):  # value at row i+k
+        return F.pad(x, (0, 0, 0, k), value=fill)[k:]
+
+    k = 1
+    while k < n:
+        alpha = -dl / down(d, k, 1.0)
+        gamma = -du / up(d, k, 1.0)
+        d = d + alpha * down(du, k, 0.0) + gamma * up(dl, k, 0.0)
+        b = b + alpha * down(b, k, 0.0) + gamma * up(b, k, 0.0)
+        dl = alpha * down(dl, k, 0.0)
+        du = gamma * up(du, k, 0.0)
+        k *= 2
+    x = b / d
+    if axis == 1:
+        x = x.T
+    return x[:, 0] if single else x
+
+
+_ADI_ENGINES = ("auto", "thomas", "pcr")
+
+
+def _check_adi_engine(engine: str) -> None:
+    if engine not in _ADI_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; use one of {_ADI_ENGINES}")
+
+
+def _adi_build(coeffs, sweeps: int, bounds, engine: str = "auto",
+               alpha_frac=None):
+    """ADI apply from probed 5-point coefficient fields (see :func:`adi`).
+
+    ``alpha_frac`` (exclusive with ``bounds``) clamps the Wachspress
+    interval's low end to ``alpha_frac·β`` instead of the smallest line
+    mode: the smoother configuration of
+    :func:`~newtonkrylov_tpu_torch.mg.multigrid2d_general`.  Every scalar is
+    a 0-d tensor of the probe's dtype on its device: an apply reads nothing
+    back to the host.
+
+    ``engine``: ``"thomas"``, ``"pcr"``, or ``"auto"`` — Thomas on a CPU
+    state (the JAX package's choice off the TPU), PCR on a CUDA state, where
+    Thomas would be n dependent launches per half-step.
+    """
+    a0, aip, aim, ajp, ajm = coeffs
+    n, m = a0.shape
+    dtype, device = a0.dtype, a0.device
+    scalar = dict(dtype=dtype, device=device)
+    one = torch.ones((), **scalar)
+
+    # solve the sign-flipped ("positive") system s·A z = s·r
+    s = torch.where(torch.mean(a0) < 0, -one, one)
+    b0, bip, bim, bjp, bjm = (s * c for c in coeffs)
+    hd = 0.5 * b0
+    vd = 0.5 * b0
+
+    if bounds is not None:
+        alpha = torch.as_tensor(bounds[0], **scalar)
+        beta = torch.as_tensor(bounds[1], **scalar)
+    else:
+        beta_h = torch.max(hd + torch.abs(bip) + torch.abs(bim))
+        beta_v = torch.max(vd + torch.abs(bjp) + torch.abs(bjm))
+        beta = torch.maximum(beta_h, beta_v)
+        if alpha_frac is not None:
+            alpha = beta * torch.as_tensor(alpha_frac, **scalar)
+        else:
+            N = max(n, m)
+            # the smallest line mode of the half-Laplacian, rounded to the
+            # probe dtype before the multiply (an f64 factor would promote
+            # every Krylov vector of an f32 solve)
+            alpha = beta * torch.as_tensor(
+                float(np.sin(np.pi / (2.0 * (N + 1))) ** 2), **scalar)
+    # Wachspress cycle: geometric points of [α, β] at the exponents
+    # (2j+1)/(2·sweeps), descending from β toward α
+    ratio = alpha / beta
+    rhos = [beta * ratio ** ((2 * j + 1) / (2.0 * sweeps))
+            for j in range(sweeps)]
+
+    def Hmul(z):
+        zp = F.pad(z, (0, 0, 1, 1))
+        return bim * zp[:-2, :] + hd * z + bip * zp[2:, :]
+
+    def Vmul(z):
+        zp = F.pad(z, (1, 1))
+        return bjm * zp[:, :-2] + vd * z + bjp * zp[:, 2:]
+
+    use_pcr = engine == "pcr" or (engine == "auto" and device.type == "cuda")
+    solve = pcr_solve if use_pcr else thomas_solve
+
+    def apply(r):
+        f = s * r
+        z = torch.zeros_like(f)
+        for rho in rhos:
+            z = solve(bim, hd + rho, bip, f + rho * z - Vmul(z), axis=0)
+            z = solve(bjm, vd + rho, bjp, f + rho * z - Hmul(z), axis=1)
+        return z
+
+    return apply
+
+
+def adi(sweeps: int = 4, *, bounds=None, axis_names=None,
+        engine: str = "auto") -> Callable:
+    """Factory: ADI (Peaceman–Rachford alternating-direction) preconditioner
+    for general — including nonsymmetric — 5-point operators on 2-D states:
+    the on-device preconditioner for the convection-dominated regime, where
+    the DST-Poisson preconditioner breaks (at c ≳ 6 its preconditioned
+    spectrum straddles the origin).
+
+    The probed operator (:func:`~newtonkrylov_tpu_torch.mg.probe_5point_general`,
+    six JVPs) splits as A = H + V, H tridiagonal along axis 0 and V along
+    axis 1, convection terms included.  One sweep with parameter ρ:
+
+        (H + ρI) z* = r + (ρI − V) z
+        (V + ρI) z  = r + (ρI − H) z*
+
+    Each half-step is a batch of independent tridiagonal systems
+    (``engine``: see :func:`_adi_build`).  ``sweeps`` cycles take the
+    Wachspress parameters on [α, β] — β from directional Gershgorin,
+    α = β·sin²(π/(2(N+1))); ``bounds=(α, β)`` overrides.  With a fixed
+    parameter sequence the map r ↦ z is linear but not symmetric: use it
+    under GMRES.  The operator is sign-normalized internally, so positive
+    and negative definite stencils both work.
+    """
+    if sweeps < 1:
+        raise ValueError("adi needs sweeps >= 1")
+    _check_adi_engine(engine)
+    _no_sharding("ADI preconditioning", axis_names)
+
+    def factory(J):
+        return _adi_build(probe_5point_general(J), sweeps, bounds, engine)
+
+    return factory
