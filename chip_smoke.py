@@ -11,14 +11,15 @@ Phases (each raises on failure; the script exits non-zero after any):
    switched off, the CUDA sources of ``newtonkrylov_tpu_torch/csrc`` compiled
    in parallel (one ``nvcc`` each);
 2. K1 and K2 against their plain PyTorch versions on the card, in f32 and
-   f64 at n = 2048 and n = 64 (K1 exactly equal, K2 within 4 ulp), timed
-   per call (CUDA events) and in device time alone (torch.profiler);
+   f64 at n = 2048 and n = 64 (K1 exactly equal, K2 within 4 ulp), the
+   2048² f32 case timed per call (CUDA events) and in device time alone
+   (torch.profiler);
 3. the chain kernels K3 (k = 0, 1, 2, 7, 33, 200), K5 (k = 2, 200) and K4
    (degree 0, 1, 4, 16, 40, on the interval of a probed Bratu Jacobian)
    against their plain versions, bit for bit, at the same sizes and dtypes
    on the same seeded inputs with random ghosts and apron (so the tiles'
    wrapped halos are exercised; k = 33, 200 and degree 40 take several
-   passes), timed the same way;
+   passes), the 2048² f32 cases timed the same way;
 4. the probe kernel K6 against its plain version, bit for bit: each of the
    JAX probe's 20 variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed
    per call;
@@ -51,22 +52,34 @@ Phases (each raises on failure; the script exits non-zero after any):
     (``two_grid(8, precision="high")``, built once) on the flagship
     configuration at 2048²; two-grid again with ``engine="pallas"``, where
     every smoothing is one K4 launch (at least two per inner iteration);
-12. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
-    convection–diffusion at 512², MG-general at 512²), the
-    aligned and the convection–diffusion solves (c = 2, and ADI(4) and
-    MG-general at c = 25 on PCR) at 64² against the same solves on the CPU,
-    and breakdowns: each component's cost alone and each solve's device
-    busy time under torch.profiler, with K4's device time per launch inside
-    the 2048² Cheb-PCG solve and, for MG-general at 512² and ADI(4) at
-    256², the host and device time and device events of one preconditioner
-    apply (measurements only).
+12. the operator and solver surface: (a) the Cheb-PCG lane at 2048² on a
+    Lanczos interval (``chebyshev(16, bounds="lanczos")``, one K4 launch per
+    preconditioner apply: exactly inners + outers), with the interval beside
+    the probed-Gershgorin one and the factory build's host and device time;
+    (b) the flagship with pipelined CG (each inner solve capped at 50
+    iterations); (c) the reference's 1-D Bratu
+    gallery at N = 10⁴ in f64 (CG with three forcings and GMRES + banded
+    direct solve to max|u − u*| ≤ 1e-5; plain GMRES, BiCGStab and CGLS must
+    fail); (d) the spectral diagnostics at 32² f64 against numpy on the
+    dense materialization (relative 1e-8); (e) the flagship from
+    ``bench.py``'s u₀;
+13. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
+    convection–diffusion at 512²), the aligned and the
+    convection–diffusion solves (c = 2, and ADI(4) and MG-general at c = 25
+    on PCR) at 64² against the same solves on the CPU, and breakdowns: each
+    component's cost alone and the device busy time of the flagship,
+    Cheb-PCG, convection–diffusion, MG-PCG and two-grid solves under
+    torch.profiler, with K4's device time per launch inside the 2048²
+    Cheb-PCG solve and, for MG-general at 512² and ADI(4) at 256², the host
+    and device time and device events of one preconditioner apply
+    (measurements only).
 
-Launch counts are zeroed just before each of phases 6–11 and read just
+Launch counts are zeroed just before each of phases 6–12 and read just
 after; each kernel must have been launched on its path (the two-grid
-path's K4 count is logged on its own line; the JSON keeps the Cheb-PCG
-path's).  The last two lines
-are a JSON object of per-kernel results and the JSON status object.
-Without a CUDA device the script fails and prints no result.
+path's K4 count is logged on its own line; the JSON's K4 count is that of
+the two Cheb-PCG paths at 2048²).  The last two lines are a JSON object of
+per-kernel results and the JSON status object.  Without a CUDA device the
+script fails and prints no result.
 """
 
 from __future__ import annotations
@@ -95,6 +108,9 @@ CONV_C = 25.0     # the convection-dominated lanes of bench.py (bench.py:284)
 CONV_REF = {("adi", 256): (10, 441), ("mg-general", 256): (8, 27),
             ("mg-general", 512): (7, 29)}
 TWO_GRID_REF = (8, 28)
+FLAGSHIP_TPU_REF = (6, 11)  # the DST-PCG flagship at 2048² (BENCH_r05.json)
+GALLERY_N = 10_000  # the reference's 1-D Bratu size (examples/bratu_1d.py)
+PIPELINED_ITMAX = 50  # inner cap of path (b); plain CG takes ≤ 2 an outer
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -298,27 +314,26 @@ def phase_kernels(torch):
         ulp2 = float((diff2 / (eps * (ref2.abs() + scale * torch.exp(u))))
                      [interior].max())
 
-        calls = {
-            "K1": (lambda: k.stencil_jvp(v, w, n),
-                   lambda: k.stencil_jvp_xla(v, w, n)),
-            "K2": (lambda: k.bratu_residual(u, n, scale),
-                   lambda: k.bratu_residual_xla(u, n, scale)),
-        }
-        times = {}
-        for name, (kern, plain) in calls.items():
-            # per call on the device timeline (host dispatch included),
-            # then device time alone (profiler)
-            times[name] = (_time_ms(kern), _time_ms(plain),
-                           _device_ms(kern), _device_ms(plain))
         log(f"[kernels] {tag}: K1 stencil_jvp bitwise-equal interior, "
             f"ghosts 0, max|err| {err1:.3e}")
         log(f"[kernels] {tag}: K2 bratu_residual max|err| {err2:.3e} "
             f"({ulp2:.2f} ulp of |F|+|scale e^u|, limit 4), ghosts 0")
-        for name, (t, p, td, pd) in times.items():
-            log(f"[kernels] {tag}: {name} per call {t:.4f} ms vs plain "
-                f"{p:.4f} ms (CUDA events, back-to-back calls); device "
-                f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
-        if n == N and dt == torch.float32:
+        if n == N and dt == torch.float32:  # the timed case
+            calls = {
+                "K1": (lambda: k.stencil_jvp(v, w, n),
+                       lambda: k.stencil_jvp_xla(v, w, n)),
+                "K2": (lambda: k.bratu_residual(u, n, scale),
+                       lambda: k.bratu_residual_xla(u, n, scale)),
+            }
+            times = {}
+            for name, (kern, plain) in calls.items():
+                # per call on the device timeline (host dispatch included),
+                # then device time alone (profiler)
+                times[name] = t, p, td, pd = (_time_ms(kern), _time_ms(plain),
+                                              _device_ms(kern), _device_ms(plain))
+                log(f"[kernels] {tag}: {name} per call {t:.4f} ms vs plain "
+                    f"{p:.4f} ms (CUDA events, back-to-back calls); device "
+                    f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
             for name, key, err in (("K1", "stencil_jvp", err1),
                                    ("K2", "bratu_residual", err2)):
                 t, p, td, pd = times[name]
@@ -374,20 +389,22 @@ def phase_chain_kernels(torch, nkt, bratu2d):
                 raise AssertionError(f"{short} {tag} steps={steps}: differs "
                                      f"from plain, max|err| {err:.3e}")
             errs[key] = max(errs[key], err)
-            reps = _reps(steps)
-            t, p = _time_ms(kern, reps), _time_ms(plain, reps)
-            td, pd = _device_ms(kern, reps), _device_ms(plain, reps)
             plan = k._tile_plan(key, n, dt, steps)
             log(f"[chain kernels] {tag}: {short} {key} steps={steps} "
-                f"bitwise equal, max|ref| {float(ref.abs().max()):.3e}; per "
-                f"call {t:.4f} ms vs plain {p:.4f} ms (CUDA events); device "
-                f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}; "
+                f"bitwise equal, max|ref| {float(ref.abs().max()):.3e}; "
                 f"{plan.passes(steps)} pass(es), tile {plan.tile_h}x"
                 f"{plan.tile_w}, S {plan.steps_per_pass}, smem "
                 f"{plan.smem_bytes} B, {plan.threads()} threads")
-            if n == N and dt == torch.float32 and steps in (CHAIN[0], 16):
-                timed[key] = (td if td is not None else t,
-                              pd if pd is not None else p)
+            if n == N and dt == torch.float32:  # the timed cases
+                reps = _reps(steps)
+                t, p = _time_ms(kern, reps), _time_ms(plain, reps)
+                td, pd = _device_ms(kern, reps), _device_ms(plain, reps)
+                log(f"[chain kernels] {tag}: {short} steps={steps} per call "
+                    f"{t:.4f} ms vs plain {p:.4f} ms (CUDA events); device "
+                    f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
+                if steps in (CHAIN[0], 16):
+                    timed[key] = (td if td is not None else t,
+                                  pd if pd is not None else p)
     return {key: (errs[key], *timed[key]) for key in errs}
 
 
@@ -534,23 +551,27 @@ def phase_aligned_small(torch, nkt, bratu2d):
         raise AssertionError("aligned 64² solve on the card disagrees with the CPU")
 
 
-def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once"):
+def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once",
+                u0=None, krylov_kwargs=None):
     """The flagship configuration at n² with preconditioner factory ``M``:
     f32 Krylov, df32 acceptance residual, ``M`` built once at u₀ (or every
-    outer, ``refresh="outer"``).  Gated on ``solved`` and the f64 true
-    residual; returns the NewtonInfo."""
+    outer, ``refresh="outer"``), from ``entry()``'s f32 guess unless an f64
+    ``u0`` is given.  Gated on ``solved`` and the f64 true residual;
+    returns the NewtonInfo."""
     p = bratu2d.default_config(n, lam=LAM)
-    u0 = bratu2d.initial_guess(n, dtype=torch.float32, device="cuda")
+    if u0 is None:
+        # entry()'s f32 u₀, handed over as its exact f64 value: the df32
+        # state starts as (u₀, 0) either way, and the f64 boundary returns
+        # hi + lo, the full state, for the f64 residual check below
+        u0 = bratu2d.initial_guess(n, dtype=torch.float32, device="cuda").to(
+            torch.float64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    # entry()'s f32 u₀, handed over as its exact f64 value: the df32 state
-    # starts as (u₀, 0) either way, and the f64 boundary returns hi + lo, the
-    # full state, for the f64 residual check below
     u, info = nkt.newton_krylov_jit(
-        bratu2d.residual_scaled, u0.to(torch.float64), p,
+        bratu2d.residual_scaled, u0, p,
         algo=algo, tol_rel=1e-8, krylov_dtype=torch.float32,
         residual_df=bratu2d.residual_scaled_df,
-        max_niter=20, M=M, precond_refresh=refresh,
+        max_niter=20, M=M, precond_refresh=refresh, krylov_kwargs=krylov_kwargs,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -768,6 +789,184 @@ def phase_two_grid(torch, nkt, bratu2d, engine, pass_name):
     return info
 
 
+def phase_cheb_lanczos(torch, nkt, bratu2d):
+    """Path (a): the Cheb-PCG lane with ``chebyshev(16, bounds="lanczos")``
+    (the interval from a 48-step Lanczos run on the u₀ operator, built
+    once); each preconditioner apply is one K4 launch."""
+    from newtonkrylov_tpu_torch.precond import chebyshev
+
+    return _df32_solve(torch, nkt, bratu2d, N, chebyshev(16, bounds="lanczos"),
+                       "cheb-pcg lanczos, Cheb(16)")
+
+
+def phase_lanczos_interval(torch, nkt, bratu2d):
+    """The Lanczos interval of the 2048² u₀ operator (f32) beside the probed
+    Gershgorin one and the ``lo_frac=1/300`` interval the Cheb-PCG lane
+    uses; gated on lying on one side of zero.  Then the host wall and the
+    device time of the whole factory build (the probe and 48 Lanczos steps,
+    no K4 launch)."""
+    from newtonkrylov_tpu_torch.mg import probe_5point
+    from newtonkrylov_tpu_torch.precond import (
+        _cheb_bounds, _resolve_cheb_bounds, chebyshev)
+
+    f32 = torch.float32
+    p = bratu2d.default_config(N, lam=LAM)
+    J = nkt.JacobianOperator(bratu2d.residual_scaled,
+                             bratu2d.initial_guess(N, f32, "cuda"), p)
+    lo, hi = (float(x) for x in _resolve_cheb_bounds(J, "lanczos", 48))
+    o, d = probe_5point(J)
+    g_lo, g_hi = float(d.min() - 4 * o.abs()), float(d.max() + 4 * o.abs())
+    theta, delta = _cheb_bounds(o, d.min(), d.max(), None, 1 / 300, f32)
+    c_lo, c_hi = float(theta - delta), float(theta + delta)
+    log(f"[cheb-pcg lanczos] n={N} f32 u0 operator: Lanczos interval "
+        f"[{lo:.6e}, {hi:.6e}] (k=48, far end widened 5%); probed Gershgorin "
+        f"[{g_lo:.6e}, {g_hi:.6e}]; lo_frac=1/300 interval [{c_lo:.6e}, "
+        f"{c_hi:.6e}]")
+    if not (lo < hi < 0 or 0 < lo < hi):
+        raise AssertionError("the Lanczos interval does not lie on one side of zero")
+    factory = chebyshev(16, bounds="lanczos")
+    build = _wall_s(torch, lambda: factory(J), reps=2)
+    events = {}
+    _, dev_us = _profile(lambda: factory(J), events)
+    log(f"[cheb-pcg lanczos] factory build (probe + 48 Lanczos steps, a "
+        f"48-row f32 basis of {48 * N * N * 4 / 1e9:.2f} GB): host wall "
+        f"{build * 1e3:.2f} ms, device {dev_us / 1e3:.2f} ms over "
+        f"{sum(events.values())} device events")
+
+
+def phase_pipelined(torch, nkt, bratu2d, plain):
+    """Path (b): the flagship with ``krylov_kwargs={"pipeline": True}``,
+    logged beside ``plain``, the main path's plain-CG flagship.  Each inner
+    solve is capped at ``PIPELINED_ITMAX`` iterations: at 2048² one f32
+    pipelined inner solve stagnates above its tolerance (ROADMAP.md Queue 3
+    item 17) and would otherwise run to the default itmax of 2n ≈ 8.4·10⁶."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    info = _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
+                       "flagship pipelined CG, DST(high)",
+                       krylov_kwargs={"pipeline": True, "itmax": PIPELINED_ITMAX})
+    log(f"[flagship pipelined CG] n={N} outer/inner "
+        f"{info.stats.outer_iterations}/{info.stats.inner_iterations} beside "
+        f"plain CG's {plain.stats.outer_iterations}/"
+        f"{plain.stats.inner_iterations} (this run's main path)")
+    return info
+
+
+def phase_gallery(torch, nkt):
+    """Path (c): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
+    at N = 10⁴, λ = 3.51382, in f64 through ``newton_krylov_jit``.  The
+    positive recipes must solve with max|u − u*| ≤ 1e-5 against the closed
+    form; the negative ones (``max_niter=4``, ``itmax=60``) must end
+    unsolved with a finite iterate."""
+    from newtonkrylov_tpu_torch.precond import banded_direct
+    from newtonkrylov_tpu_torch.problems import bratu1d
+
+    n, f64 = GALLERY_N, torch.float64
+    p = bratu1d.default_config(n)
+    u0 = bratu1d.initial_guess(n, f64, "cuda")
+    u_star = bratu1d.true_solution(bratu1d.grid(n, f64, "cuda"))
+    negative = dict(max_niter=4, krylov_kwargs={"itmax": 60})
+    recipes = [
+        ("cg", True, dict(algo="cg")),
+        ("cg + Fixed(0.1)", True, dict(algo="cg", forcing=nkt.Fixed(0.1))),
+        ("cg, exact Newton", True, dict(algo="cg", forcing=None)),
+        ("gmres + banded direct", True, dict(algo="gmres", N=banded_direct())),
+        ("gmres, no preconditioner", False,
+         dict(algo="gmres", max_niter=4, krylov_kwargs={"restart": 20, "itmax": 60})),
+        ("bicgstab", False, dict(algo="bicgstab", **negative)),
+        ("cgls", False, dict(algo="cgls", **negative)),
+    ]
+    walls = {}
+    for tag, solves, kw in recipes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, info = nkt.newton_krylov_jit(bratu1d.residual, u0, p, **kw)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        err = float((u - u_star).abs().max())
+        finite = bool(torch.isfinite(u).all()) and tuple(u.shape) == (n,)
+        log(f"[1-D gallery] N={n} {tag}: solved={bool(info.solved)} "
+            f"outer={info.stats.outer_iterations} "
+            f"inner={info.stats.inner_iterations} max|u - u*| {err:.3e} "
+            f"wall={walls[tag]:.3f} s"
+            + ("" if solves else "  (a negative recipe: must not converge)"))
+        if solves and not (bool(info.solved) and finite and err <= 1e-5):
+            raise AssertionError(f"1-D gallery {tag}: not solved, or "
+                                 "max|u - u*| above 1e-5")
+        if not solves and (bool(info.solved) or not finite):
+            raise AssertionError(f"1-D gallery {tag}: a negative recipe "
+                                 "converged or returned a non-finite iterate")
+    return walls
+
+
+def phase_spectral(torch, nkt, bratu2d):
+    """Path (d): the spectral diagnostics at 32², f64, on the card, against
+    numpy on the dense materialization: ``extreme_eigs(J, k=n²)`` of the
+    Bratu Jacobian against ``eigvalsh``, ``cond2_estimate(J, k=n²)``
+    (Lanczos on JᵀJ, so ``rmv`` runs on the card) against ``cond``, and the
+    Ritz values of ``arnoldi_hessenberg`` (k = n²) on the c = 25
+    convection–diffusion Jacobian against ``eigvals``; relative 1e-8 (of
+    max|λ| for the complex Ritz values)."""
+    import numpy as np
+
+    from newtonkrylov_tpu_torch import spectral
+    from newtonkrylov_tpu_torch.operator import materialize_dense
+    from newtonkrylov_tpu_torch.problems import convdiff2d
+
+    n, f64 = 32, torch.float64
+    J = nkt.JacobianOperator(bratu2d.residual_scaled,
+                             bratu2d.initial_guess(n, f64, "cuda"),
+                             bratu2d.default_config(n, lam=LAM))
+    dense = materialize_dense(J).cpu().numpy()
+    t0 = time.perf_counter()
+    lo, hi = (float(x) for x in spectral.extreme_eigs(J, k=n * n))
+    t_eigs = time.perf_counter() - t0
+    ev = np.linalg.eigvalsh(dense)
+    e_eigs = max(abs(lo - ev[0]) / abs(ev[0]), abs(hi - ev[-1]) / abs(ev[-1]))
+    t0 = time.perf_counter()
+    kappa = float(spectral.cond2_estimate(J, k=n * n))
+    t_cond = time.perf_counter() - t0
+    kappa_np = np.linalg.cond(dense)
+    e_cond = abs(kappa - kappa_np) / kappa_np
+    pc = convdiff2d.default_config(n, c=CONV_C, dtype=f64, device="cuda")
+    uc = convdiff2d.manufactured_solution(n, f64, "cuda")
+    Jc = nkt.JacobianOperator(convdiff2d.residual_scaled, uc, pc)
+    t0 = time.perf_counter()
+    H, _ = spectral.arnoldi_hessenberg(Jc, torch.ones_like(uc), n * n)
+    ritz = np.sort_complex(spectral.ritz_values(H))
+    t_arn = time.perf_counter() - t0
+    exact = np.sort_complex(np.linalg.eigvals(materialize_dense(Jc).cpu().numpy()))
+    e_ritz = float(np.abs(ritz - exact).max() / np.abs(exact).max())
+    log(f"[spectral] n={n} f64 Bratu: extreme_eigs k={n * n} [{lo:.12e}, "
+        f"{hi:.12e}] vs eigvalsh [{ev[0]:.12e}, {ev[-1]:.12e}], rel err "
+        f"{e_eigs:.2e} ({t_eigs:.3f} s); cond2_estimate {kappa:.10e} vs cond "
+        f"{kappa_np:.10e}, rel err {e_cond:.2e} ({t_cond:.3f} s)")
+    log(f"[spectral] n={n} f64 convdiff c=25: {ritz.size} Ritz values of "
+        f"arnoldi_hessenberg k={n * n} vs eigvals, max err / max|λ| "
+        f"{e_ritz:.2e} ({t_arn:.3f} s)")
+    if not (e_eigs <= 1e-8 and e_cond <= 1e-8 and e_ritz <= 1e-8
+            and ritz.size == exact.size):
+        raise AssertionError("spectral diagnostics on the card disagree with "
+                             "numpy beyond 1e-8")
+
+
+def phase_flagship_bench_u0(torch, nkt, bratu2d, entry_info):
+    """Path (e): the flagship from ``bench.py``'s u₀ (the f64 guess
+    × (1 + 1e-6), ``bench.py:89, 248``) beside ``entry()``'s
+    (``entry_info``, the main path's)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    u0 = bratu2d.initial_guess(N, torch.float64, "cuda") * (1.0 + 1e-6)
+    info = _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
+                       "flagship from bench.py's u0, DST(high)", u0=u0)
+    log(f"[flagship bench u0] n={N} outer/inner {info.stats.outer_iterations}/"
+        f"{info.stats.inner_iterations} beside entry()'s u0 on this card "
+        f"{entry_info.stats.outer_iterations}/{entry_info.stats.inner_iterations}"
+        f" (main path) and the JAX package's {FLAGSHIP_TPU_REF[0]}/"
+        f"{FLAGSHIP_TPU_REF[1]} (BENCH_r05.json; a TPU v5e count)")
+    return info
+
+
 def phase_chain_lane(torch, bratu2d):
     """bench.py's matvec lane at 2048² f32 with w = Δx²λ·eᵘ·mask: the
     per-matvec time of K3 (scale 0.125) and K5 by differencing chains of
@@ -867,8 +1066,7 @@ def phase_breakdown(torch, nkt, bratu2d):
         f"floor_estimate {_wall_s(torch, lambda: df32.floor_estimate(bratu2d.residual_scaled, u, p)) * 1e3:.2f}"
         f" ms host wall")
     for tag, run in (("flagship", lambda: phase_flagship(torch, nkt, bratu2d, "profiled")),
-                     ("cheb-pcg", lambda: phase_cheb(torch, nkt, bratu2d, N, "profiled")),
-                     ("aligned", lambda: phase_aligned(torch, nkt, bratu2d, "profiled"))):
+                     ("cheb-pcg", lambda: phase_cheb(torch, nkt, bratu2d, N, "profiled"))):
         k.reset_launch_counts()
         counts = {}
         t0 = time.perf_counter()
@@ -978,9 +1176,9 @@ def phase_slice_breakdown(torch, nkt, bratu2d, walls):
     256², c = 25, linearized at u* in f32: host time per linearization, per
     probe and per factory build (probe + hierarchy + smoothers); per
     preconditioner apply the host time to issue it, its wall and its device
-    time, and the device events it launches.  Then the MG-general 512²,
-    ADI 256², MG-PCG and two-grid 2048² solves under the profiler, each
-    against its unprofiled wall in ``walls``."""
+    time, and the device events it launches.  Then the MG-PCG and two-grid
+    2048² solves under the profiler, each against its unprofiled wall in
+    ``walls``."""
     from newtonkrylov_tpu_torch.mg import probe_5point_general
     from newtonkrylov_tpu_torch.problems import convdiff2d
 
@@ -1016,10 +1214,6 @@ def phase_slice_breakdown(torch, nkt, bratu2d, walls):
             f"{dev_us / 1e3:.2f} ms and {sum(counts.values())} device events "
             f"(one profiled apply)")
     for tag, run, key in (
-            ("mg-general 512²", lambda: phase_conv25(torch, nkt, "mg-general", 512, "profiled"),
-             ("mg-general", 512)),
-            ("adi 256²", lambda: phase_conv25(torch, nkt, "adi", 256, "profiled"),
-             ("adi", 256)),
             (f"mg-pcg {N}²", lambda: phase_mg_pcg(torch, nkt, bratu2d, "profiled"),
              "mg-pcg"),
             (f"two-grid {N}²", lambda: phase_two_grid(torch, nkt, bratu2d, "xla", "profiled"),
@@ -1040,11 +1234,13 @@ def main() -> int:
     from newtonkrylov_tpu_torch.kernels import stencil2d as k
     from newtonkrylov_tpu_torch.problems import bratu2d
 
+    t_start = time.perf_counter()
     phase_environment(torch)
     summary = phase_kernels(torch)
     summary.update(phase_chain_kernels(torch, nkt, bratu2d))
     summary["chain_call"] = phase_probe_kernels(torch)
     phase_selfcheck(torch)
+    log(f"[summary] build and kernel checks: {time.perf_counter() - t_start:.1f} s")
 
     # Each path counted on its own: the counts are zeroed just before it and
     # read just after, so every launch read is that path's.
@@ -1055,21 +1251,22 @@ def main() -> int:
         counts of ``keys`` go into ``into`` and must be positive."""
         for counters in (k, kp):
             counters.reset_launch_counts()
+        t0 = time.perf_counter()
         out = run()
         now = {**k.LAUNCHES, **kp.LAUNCHES}
         into.update({key: now[key] for key in keys})
-        log(f"[launches] {path}: {now}")
+        log(f"[launches] {path} ({time.perf_counter() - t0:.1f} s): {now}")
         for key in keys:
             if into[key] <= 0:
                 raise AssertionError(f"{key} was never launched by the {path}")
         return out
 
     def main_path():  # the first slice's: the aligned and flagship solves
-        info = phase_aligned(torch, nkt, bratu2d, "run")
-        phase_flagship(torch, nkt, bratu2d, "run")
-        return info
+        return (phase_aligned(torch, nkt, bratu2d, "run"),
+                phase_flagship(torch, nkt, bratu2d, "run"))
 
-    info_a = counted("main path", ("stencil_jvp", "bratu_residual"), main_path)
+    info_a, info_f = counted("main path", ("stencil_jvp", "bratu_residual"),
+                             main_path)
     if launches["stencil_jvp"] < info_a.stats.inner_iterations:
         raise AssertionError("K1 launched fewer times than the aligned "
                              "solve's inner iterations")
@@ -1081,18 +1278,41 @@ def main() -> int:
     if launches["chebyshev_apply"] < info_c.stats.inner_iterations:
         raise AssertionError("K4 launched fewer times than the Cheb-PCG "
                              "solve's inner iterations")
+    # path (a): the same lane on the Lanczos interval; the kernels JSON
+    # counts K4's launches on both Cheb-PCG paths
+    lz_launches = {}
+    info_l = counted("cheb-pcg lanczos solve", ("chebyshev_apply",),
+                     lambda: phase_cheb_lanczos(torch, nkt, bratu2d),
+                     into=lz_launches)
+    k4_l = lz_launches["chebyshev_apply"]
+    log(f"[launches] cheb-pcg lanczos solve: K4 {k4_l} launches = inner "
+        f"{info_l.stats.inner_iterations} + outer {info_l.stats.outer_iterations}"
+        f"; outer/inner beside lo_frac=1/300's {info_c.stats.outer_iterations}/"
+        f"{info_c.stats.inner_iterations} from the same u0")
+    if k4_l != info_l.stats.inner_iterations + info_l.stats.outer_iterations:
+        raise AssertionError("K4 launches on the Lanczos Cheb-PCG path are not "
+                             "one per preconditioner apply (inners + outers)")
+    launches["chebyshev_apply"] += k4_l
+    phase_lanczos_interval(torch, nkt, bratu2d)
     model = counted("probe lane", ("chain_call",),
                     lambda: phase_probe_lane(torch))
     # the GMRES paths run no hand-written kernel: their counts are logged
     counted("gmres flagship", (),
             lambda: phase_gmres_flagship(torch, nkt, bratu2d, "run"))
     counted("convdiff solve", (), lambda: phase_convdiff(torch, nkt, "run"))
+    # this slice's paths (b)-(e) run no hand-written kernel: counts logged
+    counted("flagship pipelined solve", (),
+            lambda: phase_pipelined(torch, nkt, bratu2d, info_f))
+    counted("flagship from bench.py's u0", (),
+            lambda: phase_flagship_bench_u0(torch, nkt, bratu2d, info_f))
+    counted("1-D gallery", (), lambda: phase_gallery(torch, nkt))
+    counted("spectral cross-checks", (), lambda: phase_spectral(torch, nkt, bratu2d))
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)
     walls, conv = {}, {}
     for tag, n in (("mg-general", 512), ("adi", 256), ("mg-general", 256)):
-        conv[tag, n], walls[tag, n] = counted(
+        conv[tag, n], _ = counted(
             f"convdiff c=25 {tag} {n}² solve", (),
             lambda tag=tag, n=n: phase_conv25(torch, nkt, tag, n, "run"))
     if not (conv["mg-general", 256].stats.inner_iterations
@@ -1121,16 +1341,20 @@ def main() -> int:
 
     # warm repeats (first-use costs paid), the lane's own size, the
     # small-size cross-checks and the breakdowns
+    t0 = time.perf_counter()
     phase_cheb(torch, nkt, bratu2d, N, "warm")
     phase_cheb(torch, nkt, bratu2d, 1024, "run")
     _, warm_wall = phase_convdiff(torch, nkt, "warm")
     phase_aligned_small(torch, nkt, bratu2d)
     phase_convdiff_small(torch, nkt)
-    _, walls["mg-general", 512] = phase_conv25(torch, nkt, "mg-general", 512, "warm")
     phase_conv25_small(torch, nkt)
+    log(f"[summary] warm repeats and 64² cross-checks: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_breakdown(torch, nkt, bratu2d)
     phase_convdiff_breakdown(torch, nkt, warm_wall)
     phase_slice_breakdown(torch, nkt, bratu2d, walls)
+    log(f"[summary] breakdowns: {time.perf_counter() - t0:.1f} s")
 
     pallas = "newtonkrylov_tpu/kernels/stencil2d.py"
     # kernel -> (source, replaced Pallas function, interior n, steps of the
@@ -1166,6 +1390,7 @@ def main() -> int:
         f"{model['row_shift_us']:.3f} us, column shift "
         f"{model['column_shift_us']:.3f} us, per multiply "
         f"{model['per_mul_us']:.3f} us")
+    log(f"[summary] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

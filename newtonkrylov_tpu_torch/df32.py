@@ -1,7 +1,8 @@
 """Double-float ("df32") arithmetic: ~f64 accuracy from paired f32.
 
 Counterpart of ``newtonkrylov_tpu/df32.py``, the subset the 2-D Bratu
-flagship and the convection–diffusion residual use.  A df32 value is a pair
+flagship, the convection–diffusion residual, the 1-D Bratu residual and the
+Kelley 2×2 system use.  A df32 value is a pair
 ``(hi, lo)`` of same-shape float32 tensors with ``hi = fl(hi + lo)``; it
 represents ``hi + lo`` with ~49 effective mantissa bits.  The Newton
 driver's ``residual_df`` path evaluates the acceptance residual in this
@@ -31,7 +32,7 @@ __all__ = [
     "DF", "two_sum", "fast_two_sum", "two_prod",
     "df_from_f64", "df_to_f64", "df_from_f32", "tree_add_f32",
     "add", "add_f32", "neg", "sub", "mul", "exp", "norm_hi",
-    "shift", "neighbor_sum", "scale_pow2", "scale_const", "scaled_exp",
+    "df_map", "shift", "neighbor_sum", "scale_pow2", "scale_const", "scaled_exp",
     "selfcheck", "floor_estimate",
 ]
 
@@ -186,6 +187,14 @@ def exp(a: DF) -> DF:
 
 
 # -- stencil combinators --------------------------------------------------------
+
+
+def df_map(fn, a: DF) -> DF:
+    """Apply a structurally exact tensor op (pad, slice, reshape, concat,
+    transpose, negation) to both words.  An op that rounds (a general
+    scaling, a sum of elements) breaks the normalized pair: use the df32
+    arithmetic for those."""
+    return DF(fn(a.hi), fn(a.lo))
 
 
 def shift(up: DF, *offsets: int) -> DF:

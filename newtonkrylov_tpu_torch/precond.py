@@ -5,8 +5,14 @@ the current :class:`~newtonkrylov_tpu_torch.operator.JacobianOperator`
 (every outer iteration, or once at u₀ with ``precond_refresh="once"``) and
 returns the apply ``r ↦ M⁻¹ r``.  Ported:
 
-* :func:`chebyshev` — a fixed polynomial in the operator; on a CUDA state
-  one launch of the hand-written kernel K4 per apply;
+* :func:`nested_krylov` — a truncated inner Krylov solve on the same
+  operator, for FGMRES;
+* :func:`jacobi` and :func:`banded_direct` — the diagonal, or an exact
+  tridiagonal solve, of the colored-probe banded materialization
+  (:func:`~newtonkrylov_tpu_torch.operator.materialize_banded`);
+* :func:`chebyshev` — a fixed polynomial in the operator, on the probed
+  Gershgorin interval or a Lanczos one; on a CUDA state one launch of the
+  hand-written kernel K4 per apply;
 * :func:`two_grid` — Chebyshev smoothing + a half-resolution DST solve,
   bilinear transfers as matrix products;
 * :func:`adi` — Peaceman–Rachford alternating line relaxation on the
@@ -14,37 +20,54 @@ returns the apply ``r ↦ M⁻¹ r``.  Ported:
   (convection-dominated) operators, on the tridiagonal solvers
   :func:`thomas_solve` and :func:`pcr_solve`.
 
-Not ported yet: ``chebyshev(bounds="lanczos")`` (needs ``spectral.py``,
-ROADMAP.md Queue 1 item 19), the sharded forms ``axis_names=`` (item 20),
-and ``nested_krylov``, ``jacobi``, ``banded_direct``, ``banded_lu`` and
-``ilu0`` (item 14).
+Not ported yet: the sharded forms ``axis_names=`` (ROADMAP.md Queue 1,
+item 20), and the host-side ``banded_lu`` and ``ilu0`` (item 14).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import solvers
 from .kernels import stencil2d as K
 from .mg import _apply as _stencil_apply
 from .mg import _no_sharding, probe_5point, probe_5point_general
+from .operator import _flatten, _unflatten_like, materialize_banded
+from .tree import tree_size
 
-__all__ = ["thomas_solve", "pcr_solve", "chebyshev", "two_grid", "adi"]
+__all__ = ["nested_krylov", "jacobi", "banded_direct", "thomas_solve",
+           "pcr_solve", "chebyshev", "two_grid", "adi"]
 
 
-def _resolve_cheb_bounds(bounds):
-    """A ``bounds`` spec as a concrete (lo, hi) pair or None (probed
-    Gershgorin)."""
+def _resolve_cheb_bounds(J, bounds, lanczos_k: int, space=None, v0=None):
+    """A ``bounds`` spec as a concrete (lo, hi) pair, or None (probed
+    Gershgorin).
+
+    ``bounds="lanczos"`` runs a k-step Lanczos on the operator
+    (:func:`~newtonkrylov_tpu_torch.spectral.extreme_eigs`,
+    k = min(``lanczos_k``, n)) each time the factory runs.  The Ritz
+    interval lies inside the spectrum, so its far-from-zero end is widened
+    by 5% of its width; the near-zero end is not, since widening it could
+    push the interval across the origin.  Eigenvalues beyond that end map
+    to (0, 1) under λ·p(λ) and CG mops them up.
+    """
     if not isinstance(bounds, str):
         return bounds
     if bounds != "lanczos":
         raise ValueError(f'unknown bounds spec {bounds!r}; use "lanczos" or (lo, hi)')
-    raise NotImplementedError(
-        'chebyshev(bounds="lanczos") needs spectral.py, which is not ported '
-        "yet (ROADMAP.md Queue 1, item 19)")
+    from .spectral import extreme_eigs
+
+    mult = space.size_multiplier() if space is not None else 1
+    k = min(lanczos_k, tree_size(J.u) * mult)
+    lo, hi = extreme_eigs(J, v0, k=k, space=space)
+    half = 0.05 * (hi - lo)
+    far_is_lo = torch.abs(lo) >= torch.abs(hi)
+    return (torch.where(far_is_lo, lo - half, lo),
+            torch.where(far_is_lo, hi, hi + half))
 
 
 def _cheb_bounds(o, dmin, dmax, bounds, lo_frac, dtype):
@@ -110,7 +133,10 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
     (:func:`~newtonkrylov_tpu_torch.mg.probe_5point`).
 
     ``bounds=(lo, hi)`` overrides the probed-Gershgorin interval (whose end
-    nearest zero is clamped to ``lo_frac`` times the far end).  ``engine``:
+    nearest zero is clamped to ``lo_frac`` times the far end), and
+    ``bounds="lanczos"`` measures it: ``lanczos_k`` matvecs of a Lanczos run
+    each time the factory runs (see :func:`_resolve_cheb_bounds`).
+    ``engine``:
 
     * ``"pallas"`` — the fused hand-written kernel K4
       (:func:`~newtonkrylov_tpu_torch.kernels.stencil2d.chebyshev_apply`):
@@ -125,22 +151,21 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
     aligned layout); any other state raises ``ValueError`` under
     ``"pallas"``, and under ``"auto"`` on the card.
 
-    ``bounds="lanczos"`` and ``axis_names`` are not ported yet and raise
-    ``NotImplementedError``, as do ``bc`` and ``lanczos_k`` set to anything
-    but their defaults: they only act on those two paths.
+    ``axis_names`` is not ported yet and raises ``NotImplementedError``, as
+    does ``bc`` set to anything but ``"dirichlet"``: it acts only on the
+    sharded form.
     """
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown engine {engine!r}")
     _no_sharding("Chebyshev preconditioning", axis_names)
-    if bc != "dirichlet" or lanczos_k != 48:
+    if bc != "dirichlet":
         raise NotImplementedError(
-            "chebyshev(bc=, lanczos_k=) act only on the Lanczos bounds and "
-            "the sharded form, which are not ported yet (ROADMAP.md Queue 1, "
-            "items 19 and 20)")
+            "chebyshev(bc=) acts only on the sharded form, which is not "
+            "ported yet (ROADMAP.md Queue 1, item 20)")
 
     def factory(J):
         o, d = probe_5point(J)
-        b = _resolve_cheb_bounds(bounds)
+        b = _resolve_cheb_bounds(J, bounds, lanczos_k)
         theta, delta = _cheb_bounds(o, torch.min(d), torch.max(d), b, lo_frac,
                                     d.dtype)
         return _cheb_engine_apply(o, d, theta, delta, degree, engine)
@@ -256,6 +281,63 @@ def two_grid(
             z = z + P(coarse(R(r1)))
             r2 = r - _stencil_apply(z, o, d)
             return z + smooth(r2)
+
+        return apply
+
+    return factory
+
+
+def nested_krylov(algo: str = "gmres", itmax: int = 5,
+                  rtol: Optional[float] = None, **kw) -> Callable:
+    """Factory: J ↦ (x ↦ an approximate J⁻¹x by a truncated Krylov solve of
+    ``itmax`` steps).  The preconditioner changes between applies, so the
+    outer solve must be FGMRES."""
+
+    def factory(J):
+        def apply(x):
+            return solvers.solve(algo, J, x, itmax=itmax,
+                                 restart=min(itmax, 40), rtol=rtol, **kw).x
+
+        return apply
+
+    return factory
+
+
+def jacobi(lower: int, upper: int) -> Callable:
+    """Factory: diagonal (Jacobi) scaling for a banded Jacobian, the
+    diagonal recovered by colored probing (lower + upper + 1 JVPs)."""
+
+    def factory(J):
+        _, diags = materialize_banded(J, lower, upper)
+        d = diags[lower]  # offset 0
+        safe = torch.where(d != 0, d, torch.ones_like(d))
+        unflatten = _unflatten_like(J.u)
+
+        def apply(x):
+            return unflatten(_flatten(x) / safe)
+
+        return apply
+
+    return factory
+
+
+def banded_direct() -> Callable:
+    """Factory: an exact tridiagonal solve on the banded materialization
+    (3 JVPs), the complete factorization the reference's ILU approximates
+    for 1-D stencil Jacobians.
+
+    The solver follows the state's device: :func:`pcr_solve` on a CUDA
+    state, where Thomas would be n dependent steps of launches, and
+    :func:`thomas_solve` (the JAX package's) on the CPU.
+    """
+
+    def factory(J):
+        _, (sub, d, sup) = materialize_banded(J, 1, 1)  # offsets -1, 0, +1
+        unflatten = _unflatten_like(J.u)
+        solve = pcr_solve if d.device.type == "cuda" else thomas_solve
+
+        def apply(b):
+            return unflatten(solve(sub, d, sup, _flatten(b)))
 
         return apply
 

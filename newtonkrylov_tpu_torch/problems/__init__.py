@@ -1,6 +1,6 @@
-"""Test and benchmark problems (ported so far: 2-D Bratu and 2-D
-convection–diffusion)."""
+"""Test and benchmark problems (ported so far: the Kelley 2×2 system,
+1-D and 2-D Bratu, and 2-D convection–diffusion)."""
 
-from . import bratu2d, convdiff2d
+from . import bratu1d, bratu2d, convdiff2d, simple
 
-__all__ = ["bratu2d", "convdiff2d"]
+__all__ = ["simple", "bratu1d", "bratu2d", "convdiff2d"]

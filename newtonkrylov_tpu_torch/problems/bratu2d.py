@@ -120,6 +120,14 @@ class _AlignedResidual(torch.autograd.Function):
         w = ctx.scale * torch.exp(u) * k.aligned_mask(ctx.n, u.dtype, u.device)
         return k.stencil_jvp(v, w, ctx.n)
 
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the aligned Bratu residual has no adjoint (J.rmv, cgls, "
+            "cond2_estimate): its JVP is the K1 kernel, which has no "
+            "transpose; the JAX package's rmv fails on this residual too. "
+            "Use residual_scaled on the plain layout")
+
 
 def residual_scaled_aligned(u, p: Params):
     """Δx²-scaled residual on the aligned ghost layout (see

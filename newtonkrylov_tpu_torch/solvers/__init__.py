@@ -1,22 +1,24 @@
 """Matrix-free Krylov solvers.
 
-Counterpart of ``newtonkrylov_tpu/solvers/``.  Ported: ``gmres`` (the
-default of the Newton driver), ``fgmres`` and ``cg``; ``bicgstab`` and
-``cgls`` raise until their ROADMAP.md item lands.
+Counterpart of ``newtonkrylov_tpu/solvers/``: ``gmres`` (the default of the
+Newton driver), ``fgmres``, ``cg`` (plain and pipelined), ``bicgstab`` and
+``cgls``.
 """
 
 from __future__ import annotations
 
 import inspect
 
+from .bicgstab import bicgstab, cgls
 from .cg import cg
 from .common import KrylovResult
 from .gmres import fgmres, gmres
 
-_ALGOS = {"gmres": gmres, "fgmres": fgmres, "cg": cg}
-_NOT_PORTED = ("bicgstab", "cgls")
+_ALGOS = {"gmres": gmres, "fgmres": fgmres, "cg": cg, "bicgstab": bicgstab,
+          "cgls": cgls}
 
-__all__ = ["gmres", "fgmres", "cg", "solve", "KrylovResult", "available_algos"]
+__all__ = ["gmres", "fgmres", "cg", "bicgstab", "cgls", "solve",
+           "KrylovResult", "available_algos"]
 
 
 def available_algos():
@@ -27,9 +29,6 @@ def solve(algo: str, A, b, x0=None, **kwargs) -> KrylovResult:
     """Dispatch on algorithm name.  kwargs are filtered to what the solver
     accepts, or forwarded whole to one that takes ``**kwargs`` (``fgmres``
     forwards them to ``gmres``)."""
-    if algo in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported yet (ROADMAP.md Queue 1, item 13)")
     try:
         fn = _ALGOS[algo]
     except KeyError:

@@ -11,7 +11,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-__all__ = ["KrylovResult", "default_tols", "as_operator"]
+__all__ = ["KrylovResult", "default_tols", "as_operator", "nonzero_or_one"]
 
 
 class KrylovResult(NamedTuple):
@@ -37,3 +37,8 @@ def as_operator(A) -> Callable:
     if hasattr(A, "mv"):
         return A.mv
     raise TypeError(f"not a linear operator: {A!r}")
+
+
+def nonzero_or_one(d):
+    """d where it is nonzero, else 1: a guarded divisor."""
+    return torch.where(d != 0, d, torch.ones_like(d))

@@ -36,6 +36,7 @@ import torch
 
 from ..spaces import EuclideanSpace, VectorSpace
 from ..tree import (
+    tree_add,
     tree_axpy,
     tree_basis_combine,
     tree_dtype,
@@ -107,8 +108,7 @@ def _orthogonalize_blocked(space, V, w, k, block, reorthogonalize):
     def combine(h):
         acc = tree_zeros_like(w)
         for i, c in enumerate(chunks):
-            acc = tree_map(torch.add, acc,
-                           tree_basis_combine(c, h[i * block:(i + 1) * block]))
+            acc = tree_add(acc, tree_basis_combine(c, h[i * block:(i + 1) * block]))
         return acc
 
     h = project(w)
@@ -204,7 +204,7 @@ def _gmres_cycle(Aop, Mop, Nop, x, r, beta, space, m, m_alloc, orth,
         dx = tree_basis_combine(tree_rows(V, keff), yk)
         if Nop is not None:
             dx = Nop(dx)
-    return tree_map(torch.add, x, dx), k, resnorm, dep_any
+    return tree_add(x, dx), k, resnorm, dep_any
 
 
 def gmres(

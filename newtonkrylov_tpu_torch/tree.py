@@ -17,6 +17,7 @@ __all__ = [
     "tree_leaves",
     "tree_vdot",
     "tree_norm",
+    "tree_add",
     "tree_sub",
     "tree_axpy",
     "tree_zeros_like",
@@ -56,6 +57,10 @@ def tree_vdot(x, y):
 
 def tree_norm(x):
     return torch.sqrt(tree_vdot(x, x).real)
+
+
+def tree_add(x, y):
+    return tree_map(torch.add, x, y)
 
 
 def tree_sub(x, y):

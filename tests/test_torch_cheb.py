@@ -137,18 +137,15 @@ def test_chebyshev_rejects_unported_and_bad_options():
         tp.chebyshev(engine="mosaic")
     with pytest.raises(NotImplementedError, match="item 20"):
         tp.chebyshev(axis_names=("i", "j"))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tp.chebyshev(bounds="lanczos")(Jt)
     with pytest.raises(ValueError, match="bounds"):
         tp.chebyshev(bounds="gershgorin")(Jt)
 
 
-@pytest.mark.parametrize("option", [{"bc": "periodic"}, {"lanczos_k": 32}])
+@pytest.mark.parametrize("option", [{"bc": "periodic"}, {"bc": "neumann"}])
 def test_chebyshev_rejects_options_of_unported_paths(option):
-    """``bc`` and ``lanczos_k`` act only on the Lanczos bounds and the
-    sharded form; set away from their defaults they raise, not pass
-    silently."""
-    with pytest.raises(NotImplementedError, match="items 19 and 20"):
+    """``bc`` acts only on the sharded form; set away from its default it
+    raises, not passes silently."""
+    with pytest.raises(NotImplementedError, match="item 20"):
         tp.chebyshev(**option)
 
 

@@ -19,6 +19,7 @@ from newtonkrylov_tpu_torch.kernels import stencil2d as tk
 from newtonkrylov_tpu_torch import precond as tp
 from newtonkrylov_tpu_torch.mg import multigrid2d_general, probe_5point
 from newtonkrylov_tpu_torch.precond import _cheb_bounds, chebyshev
+from newtonkrylov_tpu_torch.problems import bratu1d as tb1
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
 from newtonkrylov_tpu_torch.problems import convdiff2d as tc
 
@@ -341,3 +342,117 @@ def test_two_grid_pallas_launches_k4(cuda_device):
     assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0), "chebyshev_apply": 2}
     ref = tp.two_grid(8, precision="high", engine="xla")(J)(r)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_cheb_lanczos_pcg_solve_on_card(cuda_device):
+    """Path (a) at 256²: the flagship with ``chebyshev(16,
+    bounds="lanczos")`` built once; K4 runs once per preconditioner apply
+    (inners + outers), solved, f64 true residual within 1e-8·‖F₀‖."""
+    n = 256
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device).to(torch.float64)
+    tk.reset_launch_counts()
+    u, info = nkt.newton_krylov_jit(
+        tb.residual_scaled, u0, p, algo="cg", tol_rel=1e-8,
+        krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+        max_niter=20, M=chebyshev(16, bounds="lanczos"), precond_refresh="once")
+    assert bool(info.solved)
+    assert tk.LAUNCHES["chebyshev_apply"] == (info.stats.inner_iterations
+                                              + info.stats.outer_iterations)
+    f0 = float(torch.linalg.vector_norm(tb.residual_scaled(u0, p)))
+    fu = float(torch.linalg.vector_norm(tb.residual_scaled(u, p)))
+    assert fu <= 1e-8 * f0 + 1e-12
+
+
+def test_lanczos_bounds_on_card_match_cpu(cuda_device):
+    """The Lanczos interval of the f64 Bratu Jacobian at 64² on the card
+    equals the CPU's within 1e-10 and lies below zero."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        J = nkt.JacobianOperator(tb.residual_scaled,
+                                 tb.initial_guess(64, torch.float64, dev),
+                                 tb.default_config(64, 5.0))
+        out[str(dev)] = torch.stack(tp._resolve_cheb_bounds(J, "lanczos", 48)).cpu()
+    got, ref = out[str(cuda_device)], out["cpu"]
+    assert float(got[0]) < float(got[1]) < 0
+    assert float((got - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+
+
+def test_pipelined_cg_solve_on_card_matches_cpu(cuda_device):
+    """Path (b) in f64 at 64²: the flagship configuration's DST-preconditioned
+    CG with ``pipeline=True`` on the card takes the CPU's counts and
+    reaches its solution within 1e-9."""
+    n = 64
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        runs[str(dev)] = nkt.newton_krylov_jit(
+            tb.residual_scaled, tb.initial_guess(n, torch.float64, dev),
+            tb.default_config(n, 5.0), algo="cg", tol_rel=1e-8,
+            M=fft_poisson(precision="high"), precond_refresh="once",
+            krylov_kwargs={"pipeline": True})
+    (uc, ic), (ug, ig) = runs["cpu"], runs[str(cuda_device)]
+    assert bool(ic.solved) and bool(ig.solved)
+    assert ig.stats.outer_iterations == ic.stats.outer_iterations
+    assert ig.stats.inner_iterations == ic.stats.inner_iterations
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+
+
+def test_banded_direct_on_card_runs_pcr(cuda_device, monkeypatch):
+    """``banded_direct`` on a CUDA state solves by PCR and agrees with
+    Thomas on the CPU within 1e-10 on the 1-D Bratu Jacobian at N = 512."""
+    calls = _count_line_solves(monkeypatch)
+    n = 512
+    out = {}
+    for dev in ("cpu", cuda_device):
+        J = nkt.JacobianOperator(tb1.residual, tb1.initial_guess(n, device=dev),
+                                 tb1.default_config(n))
+        r = torch.cos(torch.arange(n, dtype=torch.float64, device=dev))
+        calls.clear()
+        out[str(dev)] = tp.banded_direct()(J)(r).cpu()
+        assert calls == (["pcr_solve"] if dev == cuda_device else ["thomas_solve"])
+    ref = out["cpu"]
+    assert float((out[str(cuda_device)] - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("recipe", ["cg", "gmres + banded direct", "bicgstab"])
+def test_gallery_on_card_matches_cpu(cuda_device, recipe):
+    """Path (c) at N = 512 in f64: a positive recipe solves on the card to
+    the CPU's root (within 1e-9, same outer count); the negative BiCGStab
+    recipe (``max_niter=4``, ``itmax=60``) ends unsolved with a finite
+    iterate on both."""
+    n = 512
+    kw = {"cg": dict(algo="cg"),
+          "gmres + banded direct": dict(algo="gmres", N=tp.banded_direct()),
+          "bicgstab": dict(algo="bicgstab", max_niter=4,
+                           krylov_kwargs={"itmax": 60})}[recipe]
+    runs = {str(dev): nkt.newton_krylov_jit(
+        tb1.residual, tb1.initial_guess(n, device=dev), tb1.default_config(n), **kw)
+        for dev in ("cpu", cuda_device)}
+    (uc, ic), (ug, ig) = runs["cpu"], runs[str(cuda_device)]
+    assert bool(ig.solved) == bool(ic.solved) == (recipe != "bicgstab")
+    assert ig.stats.outer_iterations == ic.stats.outer_iterations
+    assert bool(torch.isfinite(ug).all())
+    if recipe != "bicgstab":
+        assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+
+
+def test_spectral_on_card_matches_numpy(cuda_device):
+    """κ₂ (through ``rmv`` on the card) and the extreme eigenvalues of the
+    f64 Bratu Jacobian at 12², k = n², against numpy on the dense
+    materialization: relative 1e-8."""
+    import numpy as np
+
+    from newtonkrylov_tpu_torch import spectral
+    from newtonkrylov_tpu_torch.operator import materialize_dense
+
+    n = 12
+    J = nkt.JacobianOperator(tb.residual_scaled,
+                             tb.initial_guess(n, torch.float64, cuda_device),
+                             tb.default_config(n, 5.0))
+    dense = materialize_dense(J).cpu().numpy()
+    kappa = float(spectral.cond2_estimate(J, k=n * n))
+    assert abs(kappa - np.linalg.cond(dense)) <= 1e-8 * np.linalg.cond(dense)
+    lo, hi = spectral.extreme_eigs(J, k=n * n)
+    ev = np.linalg.eigvalsh(dense)
+    assert abs(float(lo) - ev[0]) <= 1e-8 * abs(ev[0])
+    assert abs(float(hi) - ev[-1]) <= 1e-8 * abs(ev[-1])

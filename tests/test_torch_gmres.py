@@ -267,20 +267,20 @@ def test_newton_default_gmres_basis_matches_jax():
 
 
 def test_dispatch_menu():
-    """gmres, fgmres and cg run through ``solve`` (fgmres keeps its
-    ``restart``: kwargs reach a solver that takes ``**kwargs`` whole);
-    bicgstab and cgls raise until ported."""
-    assert set(tsolvers.available_algos()) == {"gmres", "fgmres", "cg"}
+    """Every algorithm runs through ``solve`` (fgmres keeps its
+    ``restart``: kwargs reach a solver that takes ``**kwargs`` whole)."""
+    assert set(tsolvers.available_algos()) == {"gmres", "fgmres", "cg",
+                                               "bicgstab", "cgls"}
     A, b, x_true = random_system(20, seed=15, spd=True)
     _, ot = _ops(A)
     bt = torch.tensor(b, dtype=F64)
-    for algo in ("gmres", "fgmres", "cg"):
+    for algo in ("gmres", "fgmres", "cg", "bicgstab"):
         res = tsolvers.solve(algo, ot, bt, rtol=1e-10)
         assert bool(res.converged), algo
         np.testing.assert_allclose(res.x.numpy(), x_true, rtol=1e-4, err_msg=algo)
     # restart reaches fgmres through the dispatcher: 3 cycles of 2 steps
     res = tsolvers.solve("fgmres", ot, bt, restart=2, itmax=6, rtol=1e-14)
     assert res.niter == 6 and not bool(res.converged)
-    for algo in ("bicgstab", "cgls"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsolvers.solve(algo, ot, bt)
+    # cgls needs the adjoint: an operator with rmv, or At=
+    with pytest.raises(ValueError, match="At="):
+        tsolvers.solve("cgls", ot, bt)

@@ -190,8 +190,8 @@ def test_driver_rejects_unported_and_bad_options():
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", precond_refresh="x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", linesearch="armijo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="bicgstab")
+    with pytest.raises(ValueError, match="unknown algo"):
+        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="qmr")
     with pytest.raises(TypeError, match="forcing"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", forcing=0.1)
 
@@ -215,3 +215,52 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("n", [64, pytest.param(2048, marks=pytest.mark.slow)])
+@pytest.mark.parametrize("start", ["entry", "bench"])
+def test_flagship_f32_df32_counts_match_jax(start, n):
+    """The flagship configuration (f32 Krylov, df32 acceptance residual, DST
+    ``"high"`` built once, λ = 5, tol_rel 1e-8), both drivers from one u₀:
+    ``entry()``'s f32 guess, or ``bench.py``'s f64 guess × (1 + 1e-6).  The
+    outer counts must be equal; the inner counts are printed beside each
+    other (ROADMAP.md Queue 3 items 2 and 13).  The 2048² case (``-m slow``,
+    about a minute) is the card's headline size."""
+    if start == "entry":
+        u0 = np.asarray(jb.initial_guess(n, dtype=jnp.float32)).astype(np.float64)
+    else:
+        u0 = np.asarray(jb.initial_guess(n, dtype=jnp.float64)) * (1.0 + 1e-6)
+    (_, it), _ = _flagship(n, _t(u0), nkt, tb, t_fft_poisson, F32, True)
+    (_, ij), _ = _flagship(n, jnp.asarray(u0), nk, jb, j_fft_poisson,
+                           jnp.float32, True)
+    print(f"flagship n={n} u0={start}: JAX {int(ij.stats.outer_iterations)}/"
+          f"{int(ij.stats.inner_iterations)}, port {it.stats.outer_iterations}/"
+          f"{it.stats.inner_iterations}")
+    assert bool(it.solved) and bool(ij.solved)
+    assert it.stats.outer_iterations == int(ij.stats.outer_iterations)
+
+
+@pytest.mark.slow
+def test_flagship_pipelined_counts_2048():
+    """The flagship with pipelined CG at 2048² (``-m slow``, about a minute),
+    each inner solve capped at 50 iterations as ``chip_smoke.py`` does: both
+    drivers solve; their counts are printed beside each other.  In f32 one
+    pipelined inner solve can stagnate above its tolerance, and where it
+    does depends on rounding (ROADMAP.md Queue 3 item 17)."""
+    n = 2048
+    u0 = np.asarray(jb.initial_guess(n, dtype=jnp.float32)).astype(np.float64)
+    p = jb.default_config(n, lam=5.0)
+    kw = dict(algo="cg", tol_rel=1e-8, max_niter=20, precond_refresh="once",
+              krylov_kwargs={"pipeline": True, "itmax": 50})
+    _, ij = nk.newton_krylov_jit(jb.residual_scaled, jnp.asarray(u0), p,
+                                 M=j_fft_poisson(precision="high"),
+                                 krylov_dtype=jnp.float32,
+                                 residual_df=jb.residual_scaled_df, **kw)
+    _, it = nkt.newton_krylov_jit(tb.residual_scaled, _t(u0), convert.params(p),
+                                  M=t_fft_poisson(precision="high"),
+                                  krylov_dtype=F32,
+                                  residual_df=tb.residual_scaled_df, **kw)
+    print(f"pipelined flagship n={n}: JAX {int(ij.stats.outer_iterations)}/"
+          f"{int(ij.stats.inner_iterations)}, port {it.stats.outer_iterations}/"
+          f"{it.stats.inner_iterations}")
+    assert bool(it.solved) and bool(ij.solved)
