@@ -57,27 +57,43 @@ Phases (each raises on failure; the script exits non-zero after any):
     preconditioner apply: exactly inners + outers), with the interval beside
     the probed-Gershgorin one and the factory build's host and device time;
     (b) the flagship with pipelined CG (each inner solve capped at 50
-    iterations); (c) the reference's 1-D Bratu
-    gallery at N = 10⁴ in f64 (CG with three forcings and GMRES + banded
-    direct solve to max|u − u*| ≤ 1e-5; plain GMRES, BiCGStab and CGLS must
-    fail); (d) the spectral diagnostics at 32² f64 against numpy on the
-    dense materialization (relative 1e-8); (e) the flagship from
+    iterations); (d) the spectral diagnostics at 32² f64 against numpy on
+    the dense materialization (relative 1e-8); (e) the flagship from
     ``bench.py``'s u₀;
-13. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
-    convection–diffusion at 512²), the aligned and the
+13. the host-stepped driver, globalization and host-side factorizations:
+    (g) the reference's 1-D Bratu gallery at N = 10⁴ in f64 through
+    ``newton_krylov`` (CG with three forcings, GMRES + ILU(0) in host C++ by
+    bandwidth and by offsets, and GMRES + banded direct solve to
+    max|u − u*| ≤ 5e-6, the direct ones in at most two inners an outer;
+    plain GMRES, BiCGStab and CGLS must fail), with the card's refined PCR
+    tridiagonal solve at ≤ 1e-9 relative residual beside Thomas on the
+    CPU; (h) Kelley's BVP at n = 801 with GMRES + banded LU in f64 and
+    refined to 1e-8, and the reference's stalling FGMRES + nested-GMRES
+    recipe; (i) Ψtc near the 2-D Bratu fold at 2048² (λ = 6.8, rough
+    start, f32 Krylov + df32, full GMRES) with ``chebyshev(16,
+    lo_frac=1/300)`` — one K4 launch per preconditioner apply — and with the
+    DST preconditioner, their roots
+    within 1e-6, beside Newton + Armijo from the same start; (j)
+    quasilinear diffusion at 256² with MG-general, f32 Krylov + df32,
+    max|u − u*| ≤ 1e-6; (k) convection–diffusion c = 25 + ILU(0) at 64² in
+    f64 on the card against the CPU;
+14. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
+    convection–diffusion at 512², the flagship with a native f64 residual
+    beside the df32 flagship, in turns), the aligned and the
     convection–diffusion solves (c = 2, and ADI(4) and MG-general at c = 25
     on PCR) at 64² against the same solves on the CPU, and breakdowns: each
     component's cost alone and the device busy time of the flagship,
     Cheb-PCG, convection–diffusion, MG-PCG and two-grid solves under
     torch.profiler, with K4's device time per launch inside the 2048²
     Cheb-PCG solve and, for MG-general at 512² and ADI(4) at 256², the host
-    and device time and device events of one preconditioner apply
-    (measurements only).
+    and device time and device events of one preconditioner apply, and the
+    cost of one host-ILU(0) GMRES iteration at N = 10⁴ with its two copies
+    and its C++ solve timed apart (measurements only).
 
-Launch counts are zeroed just before each of phases 6–12 and read just
+Launch counts are zeroed just before each of phases 6–13 and read just
 after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
-the two Cheb-PCG paths at 2048²).  The last two lines are a JSON object of
+the two Cheb-PCG paths at 2048² and the Ψtc path).  The last two lines are a JSON object of
 per-kernel results and the JSON status object.  Without a CUDA device the
 script fails and prints no result.
 """
@@ -111,6 +127,16 @@ TWO_GRID_REF = (8, 28)
 FLAGSHIP_TPU_REF = (6, 11)  # the DST-PCG flagship at 2048² (BENCH_r05.json)
 GALLERY_N = 10_000  # the reference's 1-D Bratu size (examples/bratu_1d.py)
 PIPELINED_ITMAX = 50  # inner cap of path (b); plain CG takes ≤ 2 an outer
+PTC_LAM = 6.8     # path (i): just below the 2-D Bratu fold (λ* ≈ 6.808)
+# Path (i) runs full GMRES (a basis of up to PTC_ITMAX f32 vectors, 9.6 GB
+# at 2048²): GMRES(100) with chebyshev(16)'s default interval stagnated
+# there, 457,845 inner iterations over 10 steps (PERF.md, PR 7).
+PTC_ITMAX = 600
+NLDIFF_N = 256    # path (j): the size of the c = 25 MG-general lane
+# Path (h)'s stalling FGMRES + nested GMRES(30) recipe: each inner solve is
+# capped at one restart cycle.  Uncapped, a stalled outer runs to the
+# default itmax 2n = 3,204 FGMRES steps of 30 nested steps each.
+BVP_NESTED_ITMAX = 40
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -853,12 +879,16 @@ def phase_pipelined(torch, nkt, bratu2d, plain):
 
 
 def phase_gallery(torch, nkt):
-    """Path (c): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
-    at N = 10⁴, λ = 3.51382, in f64 through ``newton_krylov_jit``.  The
-    positive recipes must solve with max|u − u*| ≤ 1e-5 against the closed
-    form; the negative ones (``max_niter=4``, ``itmax=60``) must end
-    unsolved with a finite iterate."""
-    from newtonkrylov_tpu_torch.precond import banded_direct
+    """Path (g): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
+    at N = 10⁴, λ = 3.51382, in f64 through ``newton_krylov``, as the example
+    calls it.  The positive recipes must solve with max|u − u*| ≤ 5e-6
+    against the closed form; GMRES + banded direct (PCR with refinement on
+    the card) and GMRES + ILU(0) (host C++, by bandwidth and by offsets)
+    also in at most two inner iterations an outer (a tridiagonal ILU(0) is
+    the exact LU); the negative ones (``max_niter=4``, ``itmax=60``) must
+    end unsolved with a finite iterate.  The host-side recipes log their
+    copies between the card and the host."""
+    from newtonkrylov_tpu_torch import precond as tp
     from newtonkrylov_tpu_torch.problems import bratu1d
 
     n, f64 = GALLERY_N, torch.float64
@@ -866,37 +896,358 @@ def phase_gallery(torch, nkt):
     u0 = bratu1d.initial_guess(n, f64, "cuda")
     u_star = bratu1d.true_solution(bratu1d.grid(n, f64, "cuda"))
     negative = dict(max_niter=4, krylov_kwargs={"itmax": 60})
+    # (tag, solves, one inner an outer, kwargs)
     recipes = [
-        ("cg", True, dict(algo="cg")),
-        ("cg + Fixed(0.1)", True, dict(algo="cg", forcing=nkt.Fixed(0.1))),
-        ("cg, exact Newton", True, dict(algo="cg", forcing=None)),
-        ("gmres + banded direct", True, dict(algo="gmres", N=banded_direct())),
-        ("gmres, no preconditioner", False,
+        ("cg", True, False, dict(algo="cg")),
+        ("cg + Fixed(0.1)", True, False, dict(algo="cg", forcing=nkt.Fixed(0.1))),
+        ("cg, exact Newton", True, False, dict(algo="cg", forcing=None)),
+        ("gmres + ILU0 (host C++)", True, True,
+         dict(algo="gmres", N=tp.ilu0(bandwidth=1))),
+        ("gmres + ILU0, offsets (-1, 0, 1)", True, True,
+         dict(algo="gmres", N=tp.ilu0(offsets=(-1, 0, 1)))),
+        ("gmres + banded direct", True, True, dict(algo="gmres", N=tp.banded_direct())),
+        ("gmres, no preconditioner", False, False,
          dict(algo="gmres", max_niter=4, krylov_kwargs={"restart": 20, "itmax": 60})),
-        ("bicgstab", False, dict(algo="bicgstab", **negative)),
-        ("cgls", False, dict(algo="cgls", **negative)),
+        ("bicgstab", False, False, dict(algo="bicgstab", **negative)),
+        ("cgls", False, False, dict(algo="cgls", **negative)),
     ]
     walls = {}
-    for tag, solves, kw in recipes:
+    for tag, solves, direct, kw in recipes:
+        tp.reset_host_copies()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        u, info = nkt.newton_krylov_jit(bratu1d.residual, u0, p, **kw)
+        u, info = nkt.newton_krylov(bratu1d.residual, u0, p, **kw)
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
         err = float((u - u_star).abs().max())
         finite = bool(torch.isfinite(u).all()) and tuple(u.shape) == (n,)
-        log(f"[1-D gallery] N={n} {tag}: solved={bool(info.solved)} "
-            f"outer={info.stats.outer_iterations} "
-            f"inner={info.stats.inner_iterations} max|u - u*| {err:.3e} "
-            f"wall={walls[tag]:.3f} s"
+        outer, inner = info.stats.outer_iterations, info.stats.inner_iterations
+        copies = ("" if "ILU0" not in tag else
+                  f" host copies {tp.HOST_COPIES['device_to_host']} to the host, "
+                  f"{tp.HOST_COPIES['host_to_device']} back")
+        log(f"[1-D gallery] N={n} {tag}: solved={info.solved} outer={outer} "
+            f"inner={inner} max|u - u*| {err:.3e} wall={walls[tag]:.3f} s"
+            + copies
             + ("" if solves else "  (a negative recipe: must not converge)"))
-        if solves and not (bool(info.solved) and finite and err <= 1e-5):
+        if solves and not (info.solved and finite and err <= 5e-6):
             raise AssertionError(f"1-D gallery {tag}: not solved, or "
-                                 "max|u - u*| above 1e-5")
-        if not solves and (bool(info.solved) or not finite):
+                                 "max|u - u*| above 5e-6")
+        if direct and inner > 2 * outer:
+            raise AssertionError(f"1-D gallery {tag}: more than two inner "
+                                 "iterations an outer from a direct solve")
+        if "ILU0" in tag and not (
+                tp.HOST_COPIES["device_to_host"] == tp.HOST_COPIES["host_to_device"]
+                >= inner > 0):
+            raise AssertionError(f"1-D gallery {tag}: the host copies do not "
+                                 "match one each way per apply")
+        if not solves and (info.solved or not finite):
             raise AssertionError(f"1-D gallery {tag}: a negative recipe "
                                  "converged or returned a non-finite iterate")
     return walls
+
+
+def phase_tridiagonal(torch, nkt):
+    """The card's tridiagonal solve of ``banded_direct`` on the 1-D Bratu
+    Jacobian at u₀, N = 10⁴, f64, seeded right-hand side: relative residual
+    ‖T·x − b‖/‖b‖ of PCR alone, of PCR with refinement (gated ≤ 1e-9) and of
+    Thomas on the CPU on the same diagonals."""
+    from newtonkrylov_tpu_torch import precond as tp
+    from newtonkrylov_tpu_torch.operator import materialize_banded
+    from newtonkrylov_tpu_torch.problems import bratu1d
+
+    n = GALLERY_N
+    J = nkt.JacobianOperator(bratu1d.residual,
+                             bratu1d.initial_guess(n, torch.float64, "cuda"),
+                             bratu1d.default_config(n))
+    _, (dl, d, du) = materialize_banded(J, 1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+
+    def rel(x, diags, rhs):
+        return float(torch.linalg.vector_norm(tp._tridiag_mv(*diags, x) - rhs)
+                     / torch.linalg.vector_norm(rhs))
+
+    diags = (dl, d, du)
+    cpu = tuple(x.cpu() for x in diags)
+    r_pcr = rel(tp.pcr_solve(*diags, b), diags, b)
+    r_ref = rel(tp.pcr_refined_solve(*diags, b), diags, b)
+    r_thomas = rel(tp.thomas_solve(*cpu, b.cpu()), cpu, b.cpu())
+    dominance = float((d.abs() - dl.abs() - du.abs())[1:-1].min())
+    log(f"[tridiagonal] N={n} f64 1-D Bratu Jacobian at u0 (min(|d| - |dl| - "
+        f"|du|) {dominance:.3f}): |T x - b|/|b| PCR {r_pcr:.3e}, PCR + 2 "
+        f"refinements {r_ref:.3e} (limit 1e-9), Thomas on the CPU {r_thomas:.3e}")
+    if not r_ref <= 1e-9:
+        raise AssertionError("the card's tridiagonal solve is not direct: "
+                             "relative residual above 1e-9")
+
+
+def phase_ilu_breakdown(torch, nkt):
+    """What one host-ILU GMRES iteration costs at N = 10⁴ on the card (no
+    gate): one apply of ``ilu0(bandwidth=1)`` built at u₀ — its copy to the
+    host, the C++ triangular solves and the copy back, each timed alone —
+    and a GMRES(20) cycle of 20 iterations with and without it."""
+    import numpy as np
+
+    from newtonkrylov_tpu_torch import precond as tp
+    from newtonkrylov_tpu_torch.problems import bratu1d
+    from newtonkrylov_tpu_torch.solvers import gmres
+
+    n = GALLERY_N
+    J = nkt.JacobianOperator(bratu1d.residual,
+                             bratu1d.initial_guess(n, torch.float64, "cuda"),
+                             bratu1d.default_config(n))
+    build = _wall_s(torch, lambda: tp.ilu0(bandwidth=1)(J), reps=2)
+    M = tp.ilu0(bandwidth=1)(J)
+    r = J.res
+    host = r.cpu().numpy()
+
+    def best(fn, reps=20):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * min(times), 1e3 * float(np.median(times))
+
+    parts = {
+        "apply (both copies + C++ solve)": lambda: M(r),
+        "copy to the host (.cpu())": lambda: r.cpu(),
+        "C++ triangular solves": lambda: M.host_solve(host),
+        "copy to the card (.to(cuda))": lambda: torch.from_numpy(host).to("cuda"),
+    }
+    for tag, fn in parts.items():
+        b_ms, m_ms = best(fn)
+        log(f"[ilu breakdown] N={n}: {tag}: best {b_ms:.4f} ms, median "
+            f"{m_ms:.4f} ms (host clock, device drained)")
+    for tag, kw in (("GMRES(20) + ILU0", {"N": M}), ("GMRES(20)", {})):
+        b_ms, m_ms = best(lambda kw=kw: gmres(J, r, restart=20, itmax=20,
+                                              rtol=0.0, atol=0.0, **kw), reps=5)
+        log(f"[ilu breakdown] N={n}: {tag}, 20 iterations: best "
+            f"{b_ms / 20:.4f} ms an iteration, median {m_ms / 20:.4f} ms")
+    log(f"[ilu breakdown] N={n}: factory (3 probes, CSR to the host, C++ "
+        f"factorization) {build * 1e3:.2f} ms host wall")
+
+
+def phase_bvp(torch, nkt):
+    """Path (h): Kelley's BVP (``examples/bvp_kelley.py``), n = 801, through
+    ``newton_krylov`` with GMRES + ``banded_lu(2, 2)`` in f64, and refined
+    to 1e-8 with f32 Krylov and the df32 residual; each gated on ``solved``
+    and its plain f64 residual under its tolerance.  Then the reference's
+    FGMRES + nested GMRES(30) recipe (restart 40, 5 outers), which must end
+    unsolved with a finite iterate; its inner solves are capped at one
+    restart cycle (``BVP_NESTED_ITMAX``)."""
+    from newtonkrylov_tpu_torch import precond as tp
+    from newtonkrylov_tpu_torch.problems import bvp
+
+    p = bvp.default_config(device="cuda")
+    U0 = bvp.initial_guess(p)
+    f0 = float(torch.linalg.vector_norm(bvp.residual(U0, p)))
+    runs = [
+        ("gmres + banded LU(2, 2), f64", 1e-6,
+         dict(algo="gmres", N=tp.banded_lu(2, 2))),
+        ("gmres + banded LU(2, 2), f32 Krylov + df32", 1e-8,
+         dict(algo="gmres", N=tp.banded_lu(2, 2), tol_rel=1e-8,
+              residual_df=bvp.residual_df)),
+    ]
+    for tag, tol_rel, kw in runs:
+        tp.reset_host_copies()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, info = nkt.newton_krylov(bvp.residual, U0, p, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fu = float(torch.linalg.vector_norm(bvp.residual(U.to(torch.float64), p)))
+        log(f"[bvp] n={p.n} {tag}: solved={info.solved} "
+            f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
+            f"wall={wall:.3f} s true |F|={fu:.4e} (limit {tol_rel * f0 + 1e-12:.4e}); "
+            f"v'(0)={float(U[1]):.2e} v(20)={float(U[-2]):.2e}; host copies "
+            f"{tp.HOST_COPIES['device_to_host']} to the host, "
+            f"{tp.HOST_COPIES['host_to_device']} back")
+        if not (info.solved and fu <= tol_rel * f0 + 1e-12
+                and bool(torch.isfinite(U).all()) and tuple(U.shape) == (2 * p.n,)):
+            raise AssertionError(f"bvp {tag}: not solved, or the f64 residual "
+                                 "is above the tolerance")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, info = nkt.newton_krylov(bvp.residual, U0, p, algo="fgmres",
+                                N=tp.nested_krylov(itmax=30),
+                                krylov_kwargs={"restart": 40, "itmax": BVP_NESTED_ITMAX},
+                                max_niter=5)
+    torch.cuda.synchronize()
+    log(f"[bvp] n={p.n} fgmres + nested GMRES(30), restart 40, inner solves "
+        f"capped at {BVP_NESTED_ITMAX}, 5 outers (the reference's recipe, "
+        f"which stalls): solved={info.solved} "
+        f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
+        f"|F|={info.stats.n_res:.4e} of |F0| {f0:.4e} "
+        f"wall={time.perf_counter() - t0:.3f} s")
+    if info.solved or not bool(torch.isfinite(U).all()):
+        raise AssertionError("bvp: the nested-Krylov recipe converged or "
+                             "returned a non-finite iterate")
+
+
+def phase_ptc(torch, nkt, bratu2d):
+    """Path (i): Ψtc near the fold at 2048² (``tests/test_continuation.py``'s
+    near-fold case at full width): λ = 6.8 from u = 2.5·sin(πx)sin(πy), on
+    −F with the df32 acceptance residual of −F, f32 Krylov GMRES,
+    ``tol_rel=1e-8``, δ₀ = (n + 1)², ``max_steps=60``, full GMRES up to
+    ``PTC_ITMAX``; once with ``chebyshev(16, lo_frac=1/300)`` (the Cheb-PCG
+    lane's interval; engine "auto": one K4 launch per apply, on the probed
+    shifted diagonal) and once with ``fft_poisson(precision="high")``.  Both
+    gated on ``solved`` and the f64 true residual; their roots must agree
+    within 1e-6.  Then Newton with Armijo backtracking from the same start
+    (f64 state, f32 Krylov, the DST preconditioner), logged beside them.
+    Returns the K4 launches and the Chebyshev applies of the first solve."""
+    import math
+
+    from newtonkrylov_tpu_torch import df32
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
+    from newtonkrylov_tpu_torch.precond import chebyshev
+
+    n, f64 = N, torch.float64
+    p = bratu2d.default_config(n, lam=PTC_LAM)
+    X, Y = bratu2d.grid(n, f64, "cuda")
+    u0 = 2.5 * torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    f0 = float(torch.linalg.vector_norm(bratu2d.residual_scaled(u0, p)))
+
+    def neg(u, q):
+        return -bratu2d.residual_scaled(u, q)
+
+    def neg_df(u, q):
+        r = bratu2d.residual_scaled_df(u, q)
+        return df32.DF(-r.hi, -r.lo)
+
+    applies = [0]
+    cheb = chebyshev(16, lo_frac=1 / 300)
+
+    def counted_cheb(A):
+        M = cheb(A)
+
+        def apply(r):
+            applies[0] += 1
+            return M(r)
+
+        return apply
+
+    roots = {}
+    k4 = 0
+    for tag, M in (("Cheb(16)", counted_cheb), ("DST(high)", fft_poisson(precision="high"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, info = nkt.pseudo_transient(
+            neg, u0, p, algo="gmres", tol_rel=1e-8, M=M,
+            delta0=float((n + 1) ** 2), max_steps=60,
+            krylov_kwargs={"restart": None, "itmax": PTC_ITMAX},
+            krylov_dtype=torch.float32, residual_df=neg_df)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if tag == "Cheb(16)":  # the caller zeroed the counts before this phase
+            k4 = k.LAUNCHES["chebyshev_apply"]
+        fu = float(torch.linalg.vector_norm(bratu2d.residual_scaled(u, p)))
+        roots[tag] = u
+        log(f"[ptc] n={n} lambda={PTC_LAM} rough start, {tag}, f32 Krylov + "
+            f"df32: solved={bool(info.solved)} steps={info.stats.outer_iterations} "
+            f"inner={info.stats.inner_iterations} "
+            f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s true "
+            f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})"
+            + (f"; K4 {k4} launches, {applies[0]} preconditioner applies"
+               if tag == "Cheb(16)" else ""))
+        if not (bool(info.solved) and fu <= 1e-8 * f0 + 1e-12
+                and bool(torch.isfinite(u).all()) and tuple(u.shape) == (n, n)):
+            raise AssertionError(f"ptc {tag}: not solved, or the f64 true "
+                                 "residual is above 1e-8·‖F₀‖")
+    diff = float((roots["Cheb(16)"] - roots["DST(high)"]).abs().max())
+    log(f"[ptc] n={n}: max|u_cheb - u_dst| {diff:.3e} (limit 1e-6)")
+    if not diff <= 1e-6:
+        raise AssertionError("ptc: the Chebyshev and DST roots differ")
+    if not k4 == applies[0] > 0:
+        raise AssertionError("ptc: K4 launches differ from the Chebyshev "
+                             "preconditioner applies")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, info = nkt.newton_krylov_jit(
+        bratu2d.residual_scaled, u0, p, algo="gmres", tol_rel=1e-8,
+        linesearch="armijo", krylov_dtype=torch.float32,
+        M=fft_poisson(precision="high"), max_niter=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fu = float(torch.linalg.vector_norm(bratu2d.residual_scaled(u, p)))
+    dist = float((u - roots["DST(high)"]).abs().max())
+    log(f"[ptc] n={n} Newton + Armijo from the same start (f64 state, f32 "
+        f"Krylov, DST(high)): solved={bool(info.solved)} "
+        f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
+        f"wall={wall:.3f} s true |F|={fu:.4e}; max|u - u_ptc| {dist:.3e}")
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError("ptc: Newton + Armijo returned a non-finite iterate")
+    return k4, applies[0]
+
+
+def phase_nldiff(torch, nkt):
+    """Path (j): quasilinear diffusion at 256² (``tests/test_nldiff.py``'s
+    MG-general recipe at the size of the c = 25 lanes) through
+    ``newton_krylov_jit``: GMRES + ``multigrid2d_general()`` (PCR line
+    solves on the card), ``forcing=None``, f32 Krylov + the df32 residual to
+    1e-8; gated on ``solved`` and max|u − u*| ≤ 1e-6."""
+    from newtonkrylov_tpu_torch.mg import multigrid2d_general
+    from newtonkrylov_tpu_torch.problems import nldiff2d
+
+    n, f64 = NLDIFF_N, torch.float64
+    p = nldiff2d.default_config(n, device="cuda")
+    u0 = nldiff2d.initial_guess(n, f64, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, info = nkt.newton_krylov_jit(
+        nldiff2d.residual_scaled, u0, p, algo="gmres", M=multigrid2d_general(),
+        forcing=None, max_niter=15, tol_rel=1e-8, krylov_dtype=torch.float32,
+        residual_df=nldiff2d.residual_scaled_df,
+        krylov_kwargs={"restart": None, "itmax": 300})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float((u - nldiff2d.manufactured_solution(n, device="cuda")).abs().max())
+    fu = float(torch.linalg.vector_norm(nldiff2d.residual_scaled(u, p)))
+    f0 = float(torch.linalg.vector_norm(nldiff2d.residual_scaled(u0, p)))
+    log(f"[nldiff2d] n={n} GMRES + MG-general, f32 Krylov + df32: "
+        f"solved={bool(info.solved)} outer={info.stats.outer_iterations} "
+        f"inner={info.stats.inner_iterations} "
+        f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s true "
+        f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e}) max|u - u*| {err:.3e} "
+        f"(limit 1e-6)")
+    if not (bool(info.solved) and err <= 1e-6 and tuple(u.shape) == (n, n)):
+        raise AssertionError("nldiff2d: not solved, or max|u - u*| above 1e-6")
+
+
+def phase_convdiff_ilu(torch, nkt):
+    """Path (k): convection–diffusion at c = 25, 64², f64, through
+    ``newton_krylov`` with GMRES + ``ilu0(offsets=(-n, -1, 0, 1, n))``
+    (``tests/test_convdiff.py:83-100``), on the card and on the CPU: both
+    solved, the same outer count, solutions within 1e-9."""
+    from newtonkrylov_tpu_torch import precond as tp
+    from newtonkrylov_tpu_torch.problems import convdiff2d
+
+    n, f64 = 64, torch.float64
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = convdiff2d.default_config(n, c=CONV_C, dtype=f64, device=dev)
+        runs[dev] = nkt.newton_krylov(
+            convdiff2d.residual_scaled, convdiff2d.initial_guess(n, f64, dev), p,
+            algo="gmres", tol_rel=1e-10, forcing=None,
+            N=tp.ilu0(offsets=(-n, -1, 0, 1, n)),
+            krylov_kwargs={"restart": None, "itmax": 200})
+    (ug, ig), (uc, ic) = runs["cuda"], runs["cpu"]
+    diff = float((ug.cpu() - uc).abs().max())
+    err = float((uc - convdiff2d.manufactured_solution(n, f64, "cpu")).abs().max())
+    log(f"[convdiff c=25 ilu0 64] cuda outer/inner {ig.stats.outer_iterations}/"
+        f"{ig.stats.inner_iterations}  cpu {ic.stats.outer_iterations}/"
+        f"{ic.stats.inner_iterations}  max|u_cuda - u_cpu| {diff:.3e}  "
+        f"max|u - u*| {err:.3e}")
+    if not (ig.solved and ic.solved
+            and ig.stats.outer_iterations == ic.stats.outer_iterations
+            and diff <= 1e-9):
+        raise AssertionError("convdiff c=25 + ILU0 64² on the card disagrees "
+                             "with the CPU")
 
 
 def phase_spectral(torch, nkt, bratu2d):
@@ -965,6 +1316,38 @@ def phase_flagship_bench_u0(torch, nkt, bratu2d, entry_info):
         f" (main path) and the JAX package's {FLAGSHIP_TPU_REF[0]}/"
         f"{FLAGSHIP_TPU_REF[1]} (BENCH_r05.json; a TPU v5e count)")
     return info
+
+
+def phase_native_f64_flagship(torch, nkt, bratu2d):
+    """The flagship at 2048² with its acceptance residual in native f64
+    (``krylov_dtype=float32`` on an f64 state, no ``residual_df``) beside
+    the df32 flagship, on one card in turns (native, df32, native, df32):
+    counts, walls, ``floor_limited`` and the f64 true residual.  Each solve
+    is gated on ``solved`` and its true residual (``_df32_solve``'s gate for
+    the df32 one)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    p = bratu2d.default_config(N, lam=LAM)
+    u0 = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda").to(torch.float64)
+    for turn in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, info = nkt.newton_krylov_jit(
+            bratu2d.residual_scaled, u0, p, algo="cg", tol_rel=1e-8,
+            krylov_dtype=torch.float32, max_niter=20,
+            M=fft_poisson(precision="high"), precond_refresh="once")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fu, f0 = _true_residual(torch, bratu2d, u, u0, p)
+        log(f"[flagship native f64 residual] n={N} f32 Krylov, f64 state and "
+            f"residual, turn {turn}: solved={bool(info.solved)} "
+            f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
+            f"floor_limited={bool(info.floor_limited)} wall={wall:.3f} s true "
+            f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})")
+        if not (bool(info.solved) and fu <= 1e-8 * f0 + 1e-12):
+            raise AssertionError("flagship with a native f64 residual: not "
+                                 "solved, or true residual above 1e-8·‖F₀‖")
+        phase_flagship(torch, nkt, bratu2d, f"df32 turn {turn}")
 
 
 def phase_chain_lane(torch, bratu2d):
@@ -1305,8 +1688,24 @@ def main() -> int:
             lambda: phase_pipelined(torch, nkt, bratu2d, info_f))
     counted("flagship from bench.py's u0", (),
             lambda: phase_flagship_bench_u0(torch, nkt, bratu2d, info_f))
-    counted("1-D gallery", (), lambda: phase_gallery(torch, nkt))
     counted("spectral cross-checks", (), lambda: phase_spectral(torch, nkt, bratu2d))
+
+    # this slice's paths (g)-(k); only Ψtc with Chebyshev runs a kernel (K4)
+    counted("1-D gallery (newton_krylov)", (), lambda: phase_gallery(torch, nkt))
+    phase_tridiagonal(torch, nkt)
+    counted("bvp", (), lambda: phase_bvp(torch, nkt))
+    ptc_launches = {}
+    applies_ptc = counted(
+        "ptc near the fold", ("chebyshev_apply",),
+        lambda: phase_ptc(torch, nkt, bratu2d), into=ptc_launches)[1]
+    if ptc_launches["chebyshev_apply"] != applies_ptc:
+        raise AssertionError("K4 launches on the Ψtc path are not one per "
+                             "Chebyshev preconditioner apply")
+    launches["chebyshev_apply"] += ptc_launches["chebyshev_apply"]
+    log(f"[launches] ptc near the fold: K4 {ptc_launches['chebyshev_apply']} "
+        f"launches = {applies_ptc} Chebyshev preconditioner applies")
+    counted("nldiff2d solve", (), lambda: phase_nldiff(torch, nkt))
+    counted("convdiff c=25 + ILU0 64²", (), lambda: phase_convdiff_ilu(torch, nkt))
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)
@@ -1345,6 +1744,7 @@ def main() -> int:
     phase_cheb(torch, nkt, bratu2d, N, "warm")
     phase_cheb(torch, nkt, bratu2d, 1024, "run")
     _, warm_wall = phase_convdiff(torch, nkt, "warm")
+    phase_native_f64_flagship(torch, nkt, bratu2d)
     phase_aligned_small(torch, nkt, bratu2d)
     phase_convdiff_small(torch, nkt)
     phase_conv25_small(torch, nkt)
@@ -1354,6 +1754,7 @@ def main() -> int:
     phase_breakdown(torch, nkt, bratu2d)
     phase_convdiff_breakdown(torch, nkt, warm_wall)
     phase_slice_breakdown(torch, nkt, bratu2d, walls)
+    phase_ilu_breakdown(torch, nkt)
     log(f"[summary] breakdowns: {time.perf_counter() - t0:.1f} s")
 
     pallas = "newtonkrylov_tpu/kernels/stencil2d.py"

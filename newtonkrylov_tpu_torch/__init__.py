@@ -3,16 +3,22 @@
 A Jacobian-free Newton–Krylov solver for PyTorch tensors on an NVIDIA H100
 (or the CPU).  The JAX package ``newtonkrylov_tpu`` is the reference it is
 held against; module names and array layouts follow it.  Ported so far: the
-2-D Bratu main path — :func:`newton_krylov_jit` with GMRES/FGMRES (its
-default), CG (plain and pipelined), BiCGStab and CGLS, the Eisenstat–Walker
-forcing, df32 acceptance residuals, the DST-Poisson and Chebyshev
-preconditioners (with Lanczos bounds), and the aligned-layout residual
+reference's public driver :func:`newton_krylov` (host-stepped, with
+callbacks and host-side preconditioner factories) and
+:func:`newton_krylov_jit`, both with Armijo backtracking and the three
+precision modes; pseudo-transient continuation (:func:`pseudo_transient`);
+GMRES/FGMRES (the drivers' default), CG (plain and pipelined), BiCGStab and
+CGLS, the Eisenstat–Walker forcing, df32 acceptance residuals, the
+DST-Poisson and Chebyshev preconditioners (with Lanczos bounds), and the
+aligned-layout residual
 whose matvec runs the hand-written CUDA stencil kernels of
 :mod:`.kernels.stencil2d`, which also holds the chained kernels (the
 Chebyshev apply among them); the operator's adjoint and materializers and
-the spectral diagnostics (:mod:`.spectral`); the Kelley 2×2, 1-D Bratu and
-convection–diffusion problems; the multigrid (:mod:`.mg`), two-grid, ADI,
-Jacobi, banded-direct and nested-Krylov preconditioners; and the
+the spectral diagnostics (:mod:`.spectral`); the Kelley 2×2, 1-D Bratu,
+convection–diffusion, two-point BVP and quasilinear diffusion problems; the
+multigrid (:mod:`.mg`), two-grid, ADI, Jacobi, banded-direct and
+nested-Krylov preconditioners and the host-side banded LU and ILU(0) (host
+C++, built with the host compiler at first use); and the
 chained-step cost probe of :mod:`.kernels.probe` with its measuring script
 :mod:`.benchmarks.kernel_probe`.  Entry points that create tensors
 do so on the card unless the caller names a device.
@@ -21,8 +27,10 @@ This package imports ``torch`` and never ``jax``.
 """
 
 from . import df32, fftprec, kernels, mg, precond, problems, solvers, spectral
+from .continuation import pseudo_transient
 from .forcing import EisenstatWalker, Fixed, Forcing
-from .newton import NewtonInfo, Stats, newton_krylov_jit
+from .newton import (NewtonInfo, NewtonOptions, Stats, newton_krylov,
+                     newton_krylov_jit)
 from .operator import (
     AdjointOperator,
     JacobianOperator,
@@ -34,7 +42,10 @@ from .solvers import KrylovResult, bicgstab, cg, cgls, fgmres, gmres
 from .spaces import EuclideanSpace, MaskedSpace, VectorSpace
 
 __all__ = [
+    "newton_krylov",
     "newton_krylov_jit",
+    "pseudo_transient",
+    "NewtonOptions",
     "NewtonInfo",
     "Stats",
     "Forcing",

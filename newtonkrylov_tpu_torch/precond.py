@@ -10,6 +10,10 @@ returns the apply ``r ↦ M⁻¹ r``.  Ported:
 * :func:`jacobi` and :func:`banded_direct` — the diagonal, or an exact
   tridiagonal solve, of the colored-probe banded materialization
   (:func:`~newtonkrylov_tpu_torch.operator.materialize_banded`);
+* :func:`banded_lu` and :func:`ilu0` — host-side factorizations (scipy's
+  pivoted banded LU; ILU(0) in host C++, ``csrc/ilu0.cpp``) of the
+  materialized Jacobian: the factory runs on the host, and each apply
+  copies the vector to the host once and back once (``HOST_COPIES``);
 * :func:`chebyshev` — a fixed polynomial in the operator, on the probed
   Gershgorin interval or a Lanczos one; on a CUDA state one launch of the
   hand-written kernel K4 per apply;
@@ -21,7 +25,7 @@ returns the apply ``r ↦ M⁻¹ r``.  Ported:
   :func:`thomas_solve` and :func:`pcr_solve`.
 
 Not ported yet: the sharded forms ``axis_names=`` (ROADMAP.md Queue 1,
-item 20), and the host-side ``banded_lu`` and ``ilu0`` (item 14).
+item 20).
 """
 
 from __future__ import annotations
@@ -36,11 +40,22 @@ from . import solvers
 from .kernels import stencil2d as K
 from .mg import _apply as _stencil_apply
 from .mg import _no_sharding, probe_5point, probe_5point_general
-from .operator import _flatten, _unflatten_like, materialize_banded
+from .operator import (_flatten, _unflatten_like, materialize_banded,
+                       materialize_csr, materialize_dense)
 from .tree import tree_size
 
-__all__ = ["nested_krylov", "jacobi", "banded_direct", "thomas_solve",
-           "pcr_solve", "chebyshev", "two_grid", "adi"]
+__all__ = ["nested_krylov", "jacobi", "banded_direct", "banded_lu", "ilu0",
+           "thomas_solve", "pcr_solve", "pcr_refined_solve", "chebyshev",
+           "two_grid", "adi", "HOST_COPIES", "reset_host_copies"]
+
+# Copies between the card and the host made by the host-side applies
+# (banded_lu, ilu0): one each way per apply on a CUDA state.
+HOST_COPIES = {"device_to_host": 0, "host_to_device": 0}
+
+
+def reset_host_copies() -> None:
+    for key in HOST_COPIES:
+        HOST_COPIES[key] = 0
 
 
 def _resolve_cheb_bounds(J, bounds, lanczos_k: int, space=None, v0=None):
@@ -326,21 +341,170 @@ def banded_direct() -> Callable:
     (3 JVPs), the complete factorization the reference's ILU approximates
     for 1-D stencil Jacobians.
 
-    The solver follows the state's device: :func:`pcr_solve` on a CUDA
-    state, where Thomas would be n dependent steps of launches, and
+    The solver follows the state's device: :func:`pcr_refined_solve` on a
+    CUDA state, where Thomas would be n dependent steps of launches, and
     :func:`thomas_solve` (the JAX package's) on the CPU.
     """
 
     def factory(J):
         _, (sub, d, sup) = materialize_banded(J, 1, 1)  # offsets -1, 0, +1
         unflatten = _unflatten_like(J.u)
-        solve = pcr_solve if d.device.type == "cuda" else thomas_solve
+        solve = pcr_refined_solve if d.device.type == "cuda" else thomas_solve
 
         def apply(b):
             return unflatten(solve(sub, d, sup, _flatten(b)))
 
         return apply
 
+    return factory
+
+
+def _host_apply(host_solve: Callable, example) -> Callable:
+    """The apply of a host-side factorization: the flat vector goes to the
+    host once (``.cpu()``), ``host_solve`` (a numpy array to a numpy array
+    of the same dtype) runs there, and the result comes back once
+    (``.to(device)``), its dtype kept.  The apply carries ``host_solve`` as
+    an attribute, as the JAX package's does."""
+    unflatten = _unflatten_like(example)
+
+    def apply(x):
+        flat = _flatten(x)
+        on_card = flat.device.type != "cpu"
+        out = torch.from_numpy(host_solve(flat.cpu().numpy()))
+        if on_card:
+            HOST_COPIES["device_to_host"] += 1
+            HOST_COPIES["host_to_device"] += 1
+        return unflatten(out.to(flat.device))
+
+    apply.host_solve = host_solve
+    return apply
+
+
+def banded_lu(lower: int, upper: int) -> Callable:
+    """Factory: pivoted banded LU of the colored-probe materialization
+    (lower + upper + 1 JVPs), solved on the host by scipy's
+    ``solve_banded`` (LAPACK's pivoted banded solver).
+
+    The robust direct preconditioner for banded Jacobians whose boundary
+    rows have zero diagonals (the BVP's ``res[0] = U[1]``), where ILU(0)
+    meets a zero pivot and partial pivoting does not.  ``host_side = True``:
+    the drivers invoke it like any factory, and each apply crosses to the
+    host and back once (:func:`_host_apply`).
+    """
+    from scipy.linalg import solve_banded
+
+    def factory(J):
+        offsets, diags = materialize_banded(J, lower, upper)
+        dg = diags.cpu().numpy()
+        n = dg.shape[1]
+        # scipy's layout: ab[upper + i - j, j] = A[i, j]; diags[d][i] = A[i, i + off]
+        ab = np.zeros((lower + upper + 1, n))
+        for off, dvals in zip(offsets.tolist(), dg):
+            cols = np.arange(max(0, off), n + min(0, off))
+            ab[upper - off, cols] = dvals[cols - off]
+
+        def host_solve(flat):
+            return solve_banded((lower, upper), ab,
+                                np.asarray(flat, dtype=np.float64)).astype(flat.dtype)
+
+        return _host_apply(host_solve, J.u)
+
+    factory.host_side = True
+    return factory
+
+
+def _dense_to_csr(A: np.ndarray):
+    """CSR ``(indptr, cols, vals)`` of the nonzero entries of A."""
+    n, _ = A.shape
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    cols = []
+    vals = []
+    for i in range(n):
+        nz = np.nonzero(np.abs(A[i]) > 0.0)[0]
+        cols.append(nz)
+        vals.append(A[i, nz])
+        indptr[i + 1] = indptr[i] + len(nz)
+    return indptr, np.concatenate(cols).astype(np.int64), np.concatenate(vals)
+
+
+def _ilu0_numpy(indptr, cols, vals):
+    """ILU(0) of a CSR matrix (IKJ variant): (factored values, diagonal
+    positions).  The plain version of the host C++ library."""
+    n = len(indptr) - 1
+    vals = vals.copy()
+    colpos = [dict(zip(cols[indptr[i]: indptr[i + 1]],
+                       range(indptr[i], indptr[i + 1]))) for i in range(n)]
+    diag = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        diag[i] = colpos[i][i]
+    for i in range(1, n):
+        for kk in range(indptr[i], indptr[i + 1]):
+            k = cols[kk]
+            if k >= i:
+                break
+            vals[kk] /= vals[diag[k]]
+            lik = vals[kk]
+            for jj in range(diag[k] + 1, indptr[k + 1]):
+                pos = colpos[i].get(cols[jj])
+                if pos is not None:
+                    vals[pos] -= lik * vals[jj]
+    return vals, diag
+
+
+def _ilu0_solve_numpy(indptr, cols, vals, diag, b):
+    """x = (LU)⁻¹ b with the factors of :func:`_ilu0_numpy`."""
+    n = len(indptr) - 1
+    x = b.copy()
+    for i in range(n):  # L y = b, unit lower
+        s = x[i]
+        for jj in range(indptr[i], diag[i]):
+            s -= vals[jj] * x[cols[jj]]
+        x[i] = s
+    for i in range(n - 1, -1, -1):  # U x = y
+        s = x[i]
+        for jj in range(diag[i] + 1, indptr[i + 1]):
+            s -= vals[jj] * x[cols[jj]]
+        x[i] = s / vals[diag[i]]
+    return x
+
+
+def ilu0(bandwidth: Optional[int] = None, offsets=None) -> Callable:
+    """Factory: ILU(0) of the materialized Jacobian, factorized and applied
+    on the host by the C++ library ``csrc/ilu0.cpp`` (built with the host
+    compiler when this is called; a failed build raises).  The reference's
+    ``N = (J) -> ilu(collect(J))``.  Materialization, cheapest first:
+
+    * ``offsets`` (the flattened-index sparsity pattern, e.g. ``(-1, 0, 1)``
+      or ``(-m, -1, 0, 1, m)``): colored-probe CSR at O(nnz) memory
+      (:func:`~newtonkrylov_tpu_torch.operator.materialize_csr`);
+    * ``bandwidth``: the contiguous band ``-bandwidth … bandwidth``, the
+      same way;
+    * neither: the dense Jacobian (small systems only).
+
+    ``host_side = True``: each apply crosses to the host and back once
+    (:func:`_host_apply`).
+    """
+    from .utils.native import load_ilu
+
+    native = load_ilu()
+
+    def factory(J):
+        if offsets is not None:
+            indptr, cols, vals = materialize_csr(J, offsets)
+        elif bandwidth is not None:
+            indptr, cols, vals = materialize_csr(
+                J, range(-bandwidth, bandwidth + 1))
+        else:
+            indptr, cols, vals = _dense_to_csr(materialize_dense(J).cpu().numpy())
+        vals_f, diag = native.factorize(indptr, cols, vals)
+
+        def host_solve(flat):
+            return native.solve(indptr, cols, vals_f, diag,
+                                np.asarray(flat, dtype=np.float64)).astype(flat.dtype)
+
+        return _host_apply(host_solve, J.u)
+
+    factory.host_side = True
     return factory
 
 
@@ -430,6 +594,34 @@ def pcr_solve(dl, d, du, b, axis: int = 0):
     if axis == 1:
         x = x.T
     return x[:, 0] if single else x
+
+
+def _tridiag_mv(dl, d, du, x):
+    """T·x for one tridiagonal system in :func:`thomas_solve`'s conventions
+    (dl[0] and du[-1] unused)."""
+    return (d * x + F.pad(dl[1:] * x[:-1], (1, 0))
+            + F.pad(du[:-1] * x[1:], (0, 1)))
+
+
+_REFINEMENT_ROUNDS = 2
+
+
+def pcr_refined_solve(dl, d, du, b):
+    """One tridiagonal system solved by :func:`pcr_solve` and two rounds of
+    iterative refinement, x ← x + PCR(b − T·x), with T·x from the three
+    diagonals.
+
+    Unpivoted cyclic reduction loses digits on a system that is not
+    diagonally dominant: on the 1-D Bratu Jacobian at N = 10⁴ (f64),
+    PCR alone leaves ‖T·x − b‖/‖b‖ ≈ 3e-5, and one round of refinement
+    brings it to Thomas's level, ≈ 1e-10; the second is a margin.
+    Everything stays on the state's device: no value is read back.
+    Conventions as :func:`thomas_solve`, 1-D arrays only.
+    """
+    x = pcr_solve(dl, d, du, b)
+    for _ in range(_REFINEMENT_ROUNDS):
+        x = x + pcr_solve(dl, d, du, b - _tridiag_mv(dl, d, du, x))
+    return x
 
 
 _ADI_ENGINES = ("auto", "thomas", "pcr")

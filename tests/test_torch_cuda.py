@@ -21,7 +21,9 @@ from newtonkrylov_tpu_torch.mg import multigrid2d_general, probe_5point
 from newtonkrylov_tpu_torch.precond import _cheb_bounds, chebyshev
 from newtonkrylov_tpu_torch.problems import bratu1d as tb1
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
+from newtonkrylov_tpu_torch.problems import bvp as tbvp
 from newtonkrylov_tpu_torch.problems import convdiff2d as tc
+from newtonkrylov_tpu_torch.problems import nldiff2d as tnl
 
 pytestmark = pytest.mark.cuda
 
@@ -398,8 +400,9 @@ def test_pipelined_cg_solve_on_card_matches_cpu(cuda_device):
 
 
 def test_banded_direct_on_card_runs_pcr(cuda_device, monkeypatch):
-    """``banded_direct`` on a CUDA state solves by PCR and agrees with
-    Thomas on the CPU within 1e-10 on the 1-D Bratu Jacobian at N = 512."""
+    """``banded_direct`` on a CUDA state solves by PCR with two rounds of
+    refinement (three PCR solves an apply) and agrees with Thomas on the
+    CPU within 1e-10 on the 1-D Bratu Jacobian at N = 512."""
     calls = _count_line_solves(monkeypatch)
     n = 512
     out = {}
@@ -409,7 +412,7 @@ def test_banded_direct_on_card_runs_pcr(cuda_device, monkeypatch):
         r = torch.cos(torch.arange(n, dtype=torch.float64, device=dev))
         calls.clear()
         out[str(dev)] = tp.banded_direct()(J)(r).cpu()
-        assert calls == (["pcr_solve"] if dev == cuda_device else ["thomas_solve"])
+        assert calls == (["pcr_solve"] * 3 if dev == cuda_device else ["thomas_solve"])
     ref = out["cpu"]
     assert float((out[str(cuda_device)] - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
 
@@ -456,3 +459,128 @@ def test_spectral_on_card_matches_numpy(cuda_device):
     ev = np.linalg.eigvalsh(dense)
     assert abs(float(lo) - ev[0]) <= 1e-8 * abs(ev[0])
     assert abs(float(hi) - ev[-1]) <= 1e-8 * abs(ev[-1])
+
+
+def test_refined_pcr_on_card_reaches_thomas_accuracy(cuda_device):
+    """The solve ``banded_direct`` takes on the card, on the non-dominant
+    1-D Bratu Jacobian at u₀, N = 10⁴, f64, seeded right-hand side:
+    relative residual ≤ 1e-9."""
+    n = 10_000
+    J = nkt.JacobianOperator(tb1.residual, tb1.initial_guess(n, device=cuda_device),
+                             tb1.default_config(n))
+    _, (dl, d, du) = nkt.materialize_banded(J, 1, 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b = torch.randn(n, generator=gen, device=cuda_device, dtype=torch.float64)
+    x = tp.pcr_refined_solve(dl, d, du, b)
+    rel = torch.linalg.vector_norm(tp._tridiag_mv(dl, d, du, x) - b) / torch.linalg.vector_norm(b)
+    assert float(rel) <= 1e-9
+
+
+@pytest.mark.parametrize("driver", ["newton_krylov", "newton_krylov_jit"])
+def test_ilu0_gallery_on_card_matches_cpu(cuda_device, driver):
+    """GMRES + ``ilu0(bandwidth=1)`` at N = 512 (1-D Bratu, f64) on the
+    card and on the CPU: the same counts, roots within 1e-9; on the card
+    each preconditioner apply copies to the host and back once."""
+    run = getattr(nkt, driver)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tp.reset_host_copies()
+        out[str(dev)] = run(tb1.residual, tb1.initial_guess(512, device=dev),
+                            tb1.default_config(512), algo="gmres",
+                            N=tp.ilu0(bandwidth=1))
+        copies = dict(tp.HOST_COPIES)
+    (uc, ic), (ug, ig) = out["cpu"], out[str(cuda_device)]
+    assert bool(ig.solved) and bool(ic.solved)
+    assert ig.stats.outer_iterations == ic.stats.outer_iterations
+    assert ig.stats.inner_iterations == ic.stats.inner_iterations
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+    assert copies["device_to_host"] == copies["host_to_device"]
+    assert copies["device_to_host"] >= ig.stats.inner_iterations > 0
+
+
+def test_host_and_jit_drivers_agree_on_card(cuda_device):
+    """The two drivers on the card (1-D Bratu N = 512, CG, f64): the same
+    iterate bit for bit and the same counts."""
+    args = (tb1.residual, tb1.initial_guess(512, device=cuda_device),
+            tb1.default_config(512))
+    uh, ih = nkt.newton_krylov(*args, algo="cg")
+    uj, ij = nkt.newton_krylov_jit(*args, algo="cg")
+    assert ih.solved and bool(ij.solved)
+    assert torch.equal(uh, uj)
+    assert (ih.stats.outer_iterations, ih.stats.inner_iterations) == (
+        ij.stats.outer_iterations, ij.stats.inner_iterations)
+
+
+def test_bvp_banded_lu_on_card_matches_cpu(cuda_device):
+    """Kelley's BVP at n = 201 through ``newton_krylov`` with GMRES +
+    ``banded_lu(2, 2)`` on the card and on the CPU: the same counts, the
+    solutions within 1e-9."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tbvp.default_config(201, device=dev)
+        out[str(dev)] = nkt.newton_krylov(tbvp.residual, tbvp.initial_guess(p), p,
+                                          algo="gmres", N=tp.banded_lu(2, 2))
+    (uc, ic), (ug, ig) = out["cpu"], out[str(cuda_device)]
+    assert ig.solved and ic.solved
+    assert (ig.stats.outer_iterations, ig.stats.inner_iterations) == (
+        ic.stats.outer_iterations, ic.stats.inner_iterations)
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+
+
+def test_ptc_chebyshev_launches_k4_once_per_apply(cuda_device):
+    """Ψtc near the fold (λ = 6.8, rough start, −F) at 64² with f32 Krylov,
+    the df32 residual and ``chebyshev(16)`` on the shifted operator: solved,
+    and K4 launched exactly once per preconditioner apply."""
+    import math
+
+    n = 64
+    p = tb.default_config(n, lam=6.8)
+    X, Y = tb.grid(n, torch.float64, cuda_device)
+    u0 = 2.5 * torch.sin(math.pi * X) * torch.sin(math.pi * Y)
+    applies = [0]
+    cheb = chebyshev(16)
+
+    def counting(A):
+        M = cheb(A)
+
+        def apply(r):
+            applies[0] += 1
+            return M(r)
+
+        return apply
+
+    def neg(u, q):
+        return -tb.residual_scaled(u, q)
+
+    def neg_df(u, q):
+        r = tb.residual_scaled_df(u, q)
+        return df32.DF(-r.hi, -r.lo)
+
+    tk.reset_launch_counts()
+    u, info = nkt.pseudo_transient(neg, u0, p, algo="gmres", tol_rel=1e-8,
+                                   M=counting, delta0=float((n + 1) ** 2),
+                                   max_steps=60, krylov_dtype=torch.float32,
+                                   residual_df=neg_df)
+    assert bool(info.solved)
+    assert tk.LAUNCHES["chebyshev_apply"] == applies[0] > 0
+    f = torch.linalg.vector_norm(tb.residual_scaled(u, p))
+    f0 = torch.linalg.vector_norm(tb.residual_scaled(u0, p))
+    assert float(f) <= 1e-8 * float(f0) + 1e-12
+
+
+def test_nldiff2d_on_card_matches_cpu(cuda_device):
+    """Quasilinear diffusion at 64², f64, GMRES + MG-general with PCR line
+    solves on both devices: the same counts, solutions within 1e-9."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tnl.default_config(64, device=dev)
+        out[str(dev)] = nkt.newton_krylov_jit(
+            tnl.residual_scaled, tnl.initial_guess(64, device=dev), p,
+            algo="gmres", M=multigrid2d_general(engine="pcr"), forcing=None,
+            tol_rel=1e-10, max_niter=15,
+            krylov_kwargs={"restart": None, "itmax": 300})
+    (uc, ic), (ug, ig) = out["cpu"], out[str(cuda_device)]
+    assert bool(ig.solved) and bool(ic.solved)
+    assert (ig.stats.outer_iterations, ig.stats.inner_iterations) == (
+        ic.stats.outer_iterations, ic.stats.inner_iterations)
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-9

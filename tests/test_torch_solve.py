@@ -188,8 +188,9 @@ def test_driver_rejects_unported_and_bad_options():
     p = tb.default_config(8, 1.0)
     with pytest.raises(ValueError, match="precond_refresh"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", precond_refresh="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", linesearch="armijo")
+    with pytest.raises(ValueError, match="residual_df excludes"):
+        nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="cg", linesearch="armijo",
+                              residual_df=tb.residual_scaled_df)
     with pytest.raises(ValueError, match="unknown algo"):
         nkt.newton_krylov_jit(tb.residual_scaled, u0, p, algo="qmr")
     with pytest.raises(TypeError, match="forcing"):
