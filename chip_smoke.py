@@ -88,13 +88,25 @@ Phases (each raises on failure; the script exits non-zero after any):
     Cheb-PCG solve and, for MG-general at 512² and ADI(4) at 256², the host
     and device time and device events of one preconditioner apply, and the
     cost of one host-ILU(0) GMRES iteration at N = 10⁴ with its two copies
-    and its C++ solve timed apart (measurements only).
+    and its C++ solve timed apart (measurements only);
+15. time stepping and the differentiable solve (run after 13): (l) the 2-D
+    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 20
+    backward-Euler steps of Δt = 0.05 through ``integrate``, f32 Krylov +
+    df32) with Cheb-PCG on the Gershgorin box of the step Jacobian — one K4
+    launch per apply — gated on the exact decay g²⁰·u₀ and each step's f64
+    residual; (m) the same march through ``integrate_scan`` with DST-PCG;
+    (n) at 256² the two drivers bit for bit and a checkpointed march
+    resumed bit for bit; (o) the spring (three steppers, 10 steps), heat1d,
+    a refined heat1d_dg step and the upwind march (10 steps) on the card
+    against the CPU; (p) d(Σu*)/dλ of the 2-D Bratu root at 512² by the
+    adjoint against central differences.
 
-Launch counts are zeroed just before each of phases 6–13 and read just
-after; each kernel must have been launched on its path (the two-grid
+Launch counts are zeroed just before each of phases 6–13 and 15 and read
+just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
-the two Cheb-PCG paths at 2048² and the Ψtc path).  The last two lines are a JSON object of
-per-kernel results and the JSON status object.  Without a CUDA device the
+the two Cheb-PCG paths at 2048², the Ψtc path and the heat march).  The
+last two lines are a JSON object of per-kernel results and the JSON
+status object.  Without a CUDA device the
 script fails and prints no result.
 """
 
@@ -126,6 +138,7 @@ CONV_REF = {("adi", 256): (10, 441), ("mg-general", 256): (8, 27),
 TWO_GRID_REF = (8, 28)
 FLAGSHIP_TPU_REF = (6, 11)  # the DST-PCG flagship at 2048² (BENCH_r05.json)
 GALLERY_N = 10_000  # the reference's 1-D Bratu size (examples/bratu_1d.py)
+GALLERY_SMALL_N = 2_000  # the Fixed(0.1) and exact-Newton CG recipes (time)
 PIPELINED_ITMAX = 50  # inner cap of path (b); plain CG takes ≤ 2 an outer
 PTC_LAM = 6.8     # path (i): just below the 2-D Bratu fold (λ* ≈ 6.808)
 # Path (i) runs full GMRES (a basis of up to PTC_ITMAX f32 vectors, 9.6 GB
@@ -137,6 +150,22 @@ NLDIFF_N = 256    # path (j): the size of the c = 25 MG-general lane
 # capped at one restart cycle.  Uncapped, a stalled outer runs to the
 # default itmax 2n = 3,204 FGMRES steps of 30 nested steps each.
 BVP_NESTED_ITMAX = 40
+# Paths (l)–(n): the 2-D heat equation, a = 0.01, u₀ = sin(πx)sin(πy), 20
+# backward-Euler steps of Δt = 0.05 to t = 1 (8,400× the explicit limit at
+# 2048²)
+HEAT_N = 2048
+HEAT_SMALL_N = 256
+HEAT_A = 0.01
+HEAT_DT = 0.05
+HEAT_STEPS = 20
+# Path (o): the spring at the reference's Δt = 0.01 for 10 steps (to t = 0.1,
+# not its t = 2), the upwind march for 10 (to t = 0.1, not the JAX test's
+# 0.2): a step is host-bound at 0.14–0.8 s on either device, so the
+# reference's 200 spring steps would take ~7 minutes for three steppers
+SPRING_STEPS = 10
+UPWIND_STEPS = 10
+GRAD_N = 512      # path (p): the differentiable solve
+GRAD_LAM = 5.0
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -880,39 +909,48 @@ def phase_pipelined(torch, nkt, bratu2d, plain):
 
 def phase_gallery(torch, nkt):
     """Path (g): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
-    at N = 10⁴, λ = 3.51382, in f64 through ``newton_krylov``, as the example
-    calls it.  The positive recipes must solve with max|u − u*| ≤ 5e-6
-    against the closed form; GMRES + banded direct (PCR with refinement on
-    the card) and GMRES + ILU(0) (host C++, by bandwidth and by offsets)
-    also in at most two inner iterations an outer (a tridiagonal ILU(0) is
-    the exact LU); the negative ones (``max_niter=4``, ``itmax=60``) must
-    end unsolved with a finite iterate.  The host-side recipes log their
-    copies between the card and the host."""
+    at N = 10⁴ (the ``Fixed(0.1)`` and exact-Newton CG recipes at N = 2,000),
+    λ = 3.51382, in f64 through ``newton_krylov``, as the example calls it.
+    The positive recipes must solve with max|u − u*| ≤ 5e-6 against the
+    closed form (scaled by Δx² at N = 2,000); GMRES + banded direct (PCR
+    with refinement on the card) and GMRES + ILU(0) (host C++, by bandwidth
+    and by offsets) also in at most two inner iterations an outer (a
+    tridiagonal ILU(0) is the exact LU); the negative ones
+    (``max_niter=4``, ``itmax=60``) must end unsolved with a finite
+    iterate.  The host-side recipes log their copies between the card and
+    the host."""
     from newtonkrylov_tpu_torch import precond as tp
     from newtonkrylov_tpu_torch.problems import bratu1d
 
-    n, f64 = GALLERY_N, torch.float64
-    p = bratu1d.default_config(n)
-    u0 = bratu1d.initial_guess(n, f64, "cuda")
-    u_star = bratu1d.true_solution(bratu1d.grid(n, f64, "cuda"))
+    f64 = torch.float64
     negative = dict(max_niter=4, krylov_kwargs={"itmax": 60})
-    # (tag, solves, one inner an outer, kwargs)
+    # (tag, N, solves, one inner an outer, kwargs); two of the three CG
+    # recipes (tens of thousands of host-stepped iterations at N = 10⁴) run
+    # at GALLERY_SMALL_N to keep the script's time
     recipes = [
-        ("cg", True, False, dict(algo="cg")),
-        ("cg + Fixed(0.1)", True, False, dict(algo="cg", forcing=nkt.Fixed(0.1))),
-        ("cg, exact Newton", True, False, dict(algo="cg", forcing=None)),
-        ("gmres + ILU0 (host C++)", True, True,
+        ("cg", GALLERY_N, True, False, dict(algo="cg")),
+        ("cg + Fixed(0.1)", GALLERY_SMALL_N, True, False,
+         dict(algo="cg", forcing=nkt.Fixed(0.1))),
+        ("cg, exact Newton", GALLERY_SMALL_N, True, False,
+         dict(algo="cg", forcing=None)),
+        ("gmres + ILU0 (host C++)", GALLERY_N, True, True,
          dict(algo="gmres", N=tp.ilu0(bandwidth=1))),
-        ("gmres + ILU0, offsets (-1, 0, 1)", True, True,
+        ("gmres + ILU0, offsets (-1, 0, 1)", GALLERY_N, True, True,
          dict(algo="gmres", N=tp.ilu0(offsets=(-1, 0, 1)))),
-        ("gmres + banded direct", True, True, dict(algo="gmres", N=tp.banded_direct())),
-        ("gmres, no preconditioner", False, False,
+        ("gmres + banded direct", GALLERY_N, True, True,
+         dict(algo="gmres", N=tp.banded_direct())),
+        ("gmres, no preconditioner", GALLERY_N, False, False,
          dict(algo="gmres", max_niter=4, krylov_kwargs={"restart": 20, "itmax": 60})),
-        ("bicgstab", False, False, dict(algo="bicgstab", **negative)),
-        ("cgls", False, False, dict(algo="cgls", **negative)),
+        ("bicgstab", GALLERY_N, False, False, dict(algo="bicgstab", **negative)),
+        ("cgls", GALLERY_N, False, False, dict(algo="cgls", **negative)),
     ]
     walls = {}
-    for tag, solves, direct, kw in recipes:
+    for tag, n, solves, direct, kw in recipes:
+        p = bratu1d.default_config(n)
+        u0 = bratu1d.initial_guess(n, f64, "cuda")
+        u_star = bratu1d.true_solution(bratu1d.grid(n, f64, "cuda"))
+        # the discretization error scales with Δx²: 5e-6 at N = 10⁴
+        limit = 5e-6 * ((GALLERY_N + 1) / (n + 1)) ** 2
         tp.reset_host_copies()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -926,12 +964,13 @@ def phase_gallery(torch, nkt):
                   f" host copies {tp.HOST_COPIES['device_to_host']} to the host, "
                   f"{tp.HOST_COPIES['host_to_device']} back")
         log(f"[1-D gallery] N={n} {tag}: solved={info.solved} outer={outer} "
-            f"inner={inner} max|u - u*| {err:.3e} wall={walls[tag]:.3f} s"
+            f"inner={inner} max|u - u*| {err:.3e} (limit {limit:.3e}) "
+            f"wall={walls[tag]:.3f} s"
             + copies
             + ("" if solves else "  (a negative recipe: must not converge)"))
-        if solves and not (info.solved and finite and err <= 5e-6):
+        if solves and not (info.solved and finite and err <= limit):
             raise AssertionError(f"1-D gallery {tag}: not solved, or "
-                                 "max|u - u*| above 5e-6")
+                                 f"max|u - u*| above {limit:.3e}")
         if direct and inner > 2 * outer:
             raise AssertionError(f"1-D gallery {tag}: more than two inner "
                                  "iterations an outer from a direct solve")
@@ -1248,6 +1287,349 @@ def phase_convdiff_ilu(torch, nkt):
             and diff <= 1e-9):
         raise AssertionError("convdiff c=25 + ILU0 64² on the card disagrees "
                              "with the CPU")
+
+
+def _heat_setup(torch, n, device="cuda"):
+    """The heat march of paths (l)–(n) at n²: (params, o, u₀, g) with
+    o = Δt·a/Δx² and g the exact backward-Euler factor of the eigenvector
+    u₀ = sin(πx)sin(πy) of the discrete Dirichlet Laplacian, in f64."""
+    import math
+
+    from newtonkrylov_tpu_torch.problems import heat2d
+
+    p = heat2d.default_config(n, a=HEAT_A)
+    o = HEAT_DT * p.a / (p.dx * p.dx)
+    u0 = heat2d.initial_condition(n, torch.float64, device)
+    g = 1.0 / (1.0 + HEAT_DT * p.a * (8.0 / (p.dx * p.dx))
+               * math.sin(math.pi * p.dx / 2.0) ** 2)
+    return p, o, u0, g
+
+
+def _heat_kwargs(M):
+    """The flagship's precision mode on the heat step: f32 Krylov CG on the
+    f64 state, the df32 acceptance residual, ``tol_rel=1e-8``,
+    ``tol_abs=0``, ``M`` built once a step."""
+    import torch
+
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.timestep import implicit_euler_df
+
+    return dict(algo="cg", M=M, precond_refresh="once",
+                krylov_dtype=torch.float32,
+                residual_df=implicit_euler_df(heat2d.rhs_df),
+                tol_rel=1e-8, tol_abs=0.0)
+
+
+def _gate_decay(torch, tag, u, u0, g, steps):
+    """max|u − g^steps·u₀| ≤ 1e-6·max|u₀|; returns the error."""
+    err = float((u - g ** steps * u0).abs().max())
+    limit = 1e-6 * float(u0.abs().max())
+    log(f"[{tag}] max|u_{steps} - g^{steps} u0| {err:.4e} (limit {limit:.4e}; "
+        f"g = {g:.9f}, g^{steps} = {g ** steps:.9f})")
+    if not (err <= limit and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"{tag}: the state is not g^{steps}·u0")
+    return err
+
+
+def phase_heat_cheb(torch, nkt):
+    """Path (l): the 2-D heat equation at 2048², a = 0.01, u₀ =
+    sin(πx)sin(πy), 20 backward-Euler steps of Δt = 0.05 (8,400× the
+    explicit limit) through ``integrate`` with Cheb-PCG:
+    ``chebyshev(16, bounds=(−1 − 8o, −1))``, the probed Gershgorin box of
+    J = −I + o·S, built once a step (one K4 launch per apply on the card).
+    Gates: no failed step, every step's f64 residual ‖G(uₙ₊₁)‖ ≤
+    1.2e-8·‖G(uₙ)‖, the final state g²⁰·u₀ within 1e-6·max|u₀|.  Logs the
+    per-step counts, the wall, whether the df32 floor clamp engaged, and
+    one step's device busy share.  Returns (the final state, the Chebyshev
+    applies, K4's included in the profiled step)."""
+    from newtonkrylov_tpu_torch import df32
+    from newtonkrylov_tpu_torch.precond import chebyshev
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.timestep import StepParams, implicit_euler
+
+    n = HEAT_N
+    p, o, u0, g = _heat_setup(torch, n)
+    applies = [0]
+    cheb = chebyshev(16, bounds=(-1.0 - 8.0 * o, -1.0))
+
+    def counted_cheb(A):
+        M = cheb(A)
+
+        def apply(r):
+            applies[0] += 1
+            return M(r)
+
+        return apply
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = nkt.integrate("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_DT * HEAT_STEPS,
+                      save_history=True, newton_kwargs=_heat_kwargs(counted_cheb))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outers, inners = r.outer_iterations.tolist(), r.inner_iterations.tolist()
+    log(f"[heat cheb] n={n} a={HEAT_A} dt={HEAT_DT} (o = {o:.1f}, spectrum "
+        f"[{-1 - 8 * o:.1f}, -1]) {HEAT_STEPS} steps, Cheb(16)-PCG, f32 Krylov "
+        f"+ df32: n_failed={r.n_failed} outer {sum(outers)} inner {sum(inners)} "
+        f"wall={wall:.3f} s ({wall / HEAT_STEPS:.3f} s a step); "
+        f"{applies[0]} Chebyshev applies")
+    log(f"[heat cheb] per-step outer {outers}")
+    log(f"[heat cheb] per-step inner {inners}")
+    if r.n_failed != 0:
+        raise AssertionError("heat cheb: a step's solve failed")
+    G = implicit_euler(heat2d.rhs)
+    worst, clamped = 0.0, 0
+    for k in range(HEAT_STEPS):
+        un, u1 = r.history[k], r.history[k + 1]
+        sp = StepParams(un=un, dt=HEAT_DT, p=p, t=(k + 1) * HEAT_DT)
+        ratio = float(torch.linalg.vector_norm(G(u1, sp))
+                      / torch.linalg.vector_norm(G(un, sp)))
+        worst = max(worst, ratio)
+        # the driver's df32 floor clamp: floor_rtol (2) × the measured floor
+        # above tol_rel·‖G(uₙ)‖
+        sp32 = sp._replace(un=un.float())
+        floor = float(df32.floor_estimate(G, un.float(), sp32))
+        clamped += 2.0 * floor > 1e-8 * float(torch.linalg.vector_norm(G(un, sp)))
+        if not ratio <= 1.2e-8:
+            raise AssertionError(f"heat cheb: step {k + 1}'s f64 residual is "
+                                 f"{ratio:.3e} of ‖G(uₙ)‖, above 1.2e-8")
+    log(f"[heat cheb] worst step f64 residual ‖G(u_k+1)‖/‖G(u_k)‖ "
+        f"{worst:.4e} (limit 1.2e-8); floor_limited in {clamped} of "
+        f"{HEAT_STEPS} steps")
+    _gate_decay(torch, "heat cheb", r.u, u0, g, HEAT_STEPS)
+    # the first step again under the profiler, against the march's mean
+    # unprofiled step wall (every step takes the same counts)
+    sp = StepParams(un=u0, dt=HEAT_DT, p=p, t=HEAT_DT)
+    counts = {}
+    _, busy_us = _profile(lambda: nkt.newton_krylov_jit(
+        G, u0, sp, **_heat_kwargs(counted_cheb)), counts)
+    step_wall = wall / HEAT_STEPS
+    log(f"[heat cheb] one step under the profiler: device busy "
+        f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / step_wall:.1f}% of the "
+        f"march's mean step wall {step_wall:.3f} s; {sum(counts.values())} "
+        f"device events")
+    return r.u, applies[0]
+
+
+def phase_heat_dst_scan(torch, nkt, u_cheb):
+    """Path (m): the march of (l) through ``integrate_scan`` with DST-PCG
+    (``fft_poisson()``, exact for this constant-coefficient J), saving every
+    5th step.  Gates: no failed step, the history's shape and times, the
+    final state within 1e-7·max|u₀| of (l)'s and g²⁰·u₀ within
+    1e-6·max|u₀|."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import heat2d
+
+    n = HEAT_N
+    p, _, u0, g = _heat_setup(torch, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = nkt.integrate_scan("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_STEPS,
+                           save_every=5, newton_kwargs=_heat_kwargs(fft_poisson()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outers, inners = r.outer_iterations.tolist(), r.inner_iterations.tolist()
+    ts = r.ts.tolist()
+    diff = float((r.u - u_cheb).abs().max())
+    limit = 1e-7 * float(u0.abs().max())
+    log(f"[heat dst scan] n={n} {HEAT_STEPS} steps through integrate_scan, "
+        f"DST-PCG: n_failed={int(r.n_failed)} outer {sum(outers)} inner "
+        f"{sum(inners)} wall={wall:.3f} s; history {tuple(r.history.shape)} "
+        f"ts {ts}; max|u - u_cheb| {diff:.4e} (limit {limit:.4e})")
+    log(f"[heat dst scan] per-step outer {outers}")
+    log(f"[heat dst scan] per-step inner {inners}")
+    if int(r.n_failed) != 0:
+        raise AssertionError("heat dst scan: a step's solve failed")
+    if tuple(r.history.shape) != (HEAT_STEPS // 5, n, n):
+        raise AssertionError("heat dst scan: history has the wrong shape")
+    if not all(abs(a - b) <= 1e-12 for a, b in zip(ts, (0.25, 0.5, 0.75, 1.0))):
+        raise AssertionError("heat dst scan: wrong ts")
+    if not diff <= limit:
+        raise AssertionError("heat dst scan: the final state differs from "
+                             "the Cheb-PCG march's")
+    _gate_decay(torch, "heat dst scan", r.u, u0, g, HEAT_STEPS)
+
+
+def phase_heat_drivers(torch, nkt):
+    """Path (n) at 256², DST-PCG: a 15-step ``integrate`` march with
+    ``checkpoint_every=5`` into a temporary directory is the uninterrupted
+    reference; ``integrate_scan`` over 10 steps equals its ``march_10``
+    snapshot bit for bit; with ``march_15`` removed, the march resumed from
+    ``march_10`` runs only the remaining 5 steps and ends on the
+    reference's state bit for bit."""
+    import tempfile
+
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.utils.checkpointing import load_checkpoint
+
+    n, steps = HEAT_SMALL_N, 15
+    p, _, u0, _ = _heat_setup(torch, n)
+    kw = _heat_kwargs(fft_poisson())
+    with tempfile.TemporaryDirectory() as d:
+        full = nkt.integrate("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_DT * steps,
+                             newton_kwargs=kw, checkpoint_dir=d,
+                             checkpoint_every=5)
+        written = sorted(os.listdir(d))
+        scan = nkt.integrate_scan("euler", heat2d.rhs, u0, p, HEAT_DT, 10,
+                                  newton_kwargs=kw)
+        at_10 = load_checkpoint(os.path.join(d, "march_10.npz"), u0)
+        same = _bitwise_equal(torch, at_10.u, scan.u)
+        os.remove(os.path.join(d, "march_15.npz"))
+        resumed = nkt.integrate("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_DT * steps,
+                                newton_kwargs=kw, checkpoint_dir=d, resume=True)
+    resumed_same = _bitwise_equal(torch, full.u, resumed.u)
+    log(f"[heat drivers] n={n}: checkpoints {written} (t at march_10: "
+        f"{at_10.t}, step {at_10.step}); integrate_scan over 10 steps vs "
+        f"integrate's march_10 bitwise {same}; resumed from march_10: "
+        f"{len(resumed.outer_iterations)} steps, final state bitwise {resumed_same}")
+    if written != [f"march_{k}.npz" for k in (10, 15, 5)]:
+        raise AssertionError("heat drivers: unexpected checkpoint files")
+    if not (same and at_10.step == 10):
+        raise AssertionError("heat drivers: integrate and integrate_scan differ")
+    if not (resumed_same and len(resumed.outer_iterations) == steps - 10):
+        raise AssertionError("heat drivers: the resumed march differs from the "
+                             "uninterrupted one")
+
+
+def phase_small_problems(torch, nkt):
+    """Path (o): the reference's small problems on the card against the
+    same marches on the CPU, f64: the spring with all three steppers
+    (Δt = 0.01, ``SPRING_STEPS`` steps), heat1d (m = 100, Δt = 0.1 to
+    t = 1), one heat1d_dg step refined to 1e-8 (``dg_config()``, full
+    GMRES, ``itmax=200``, df32 residual) also against an f64 oracle step on
+    the card, and the upwind march (Δt = 0.01, ``UPWIND_STEPS`` steps).
+    Gates: no failed step; the spring and the DG step in equal per-step
+    counts with states within 1e-12, the DG step within 1e-7 of the
+    oracle.  heat1d
+    and the upwind march run GMRES(100) to ~100 inners a step, where the
+    devices' dot products, summed in another order, move the counts (as
+    between the JAX package and the port on the CPU, ROADMAP.md Queue 3
+    item 18): their states are held to the marches' accumulated acceptance
+    tolerance, steps × tol_abs (‖J⁻¹‖ ≤ 1 for these step Jacobians)."""
+    from newtonkrylov_tpu_torch.problems import heat1d, heat1d_dg, spring
+    from newtonkrylov_tpu_torch.timestep import (StepParams, implicit_euler,
+                                                 implicit_euler_df)
+
+    def march(dev, stepper, f, p_of, u0_of, dt, t_final):
+        p = p_of(dev)
+        r = nkt.integrate(stepper, f, u0_of(p, dev), p, dt, t_final)
+        return r.u, r.outer_iterations.tolist(), r.inner_iterations.tolist(), r.n_failed
+
+    def dg_step(dev, tol_rel, residual_df):
+        p = heat1d_dg.dg_config(device=dev)
+        u0 = heat1d_dg.initial_condition(p)
+        sp = StepParams(un=u0, dt=1e-4, p=p, t=1e-4)
+        kw = dict(algo="gmres", tol_rel=tol_rel, max_niter=10,
+                  krylov_kwargs={"restart": None, "itmax": 200})
+        if residual_df:
+            kw["residual_df"] = implicit_euler_df(heat1d_dg.rhs_df)
+        u, info = nkt.newton_krylov_jit(implicit_euler(heat1d_dg.rhs), u0, sp, **kw)
+        if not bool(info.solved):
+            raise AssertionError(f"small problems: the DG step on {dev} failed")
+        return u, [info.stats.outer_iterations], [info.stats.inner_iterations], 0
+
+    spring_t = 0.01 * SPRING_STEPS
+    # (tag, counts must be equal, run); a march's default tol_abs is 6e-6
+    cases = [(f"spring {s}, dt=0.01 to t={spring_t:g}", True,
+              lambda dev, s=s: march(dev, s, spring.rhs,
+                                     lambda dev: spring.default_config(),
+                                     lambda p, dev: spring.initial_condition(device=dev),
+                                     0.01, spring_t))
+             for s in ("euler", "midpoint", "trapezoid")]
+    cases += [
+        ("heat1d m=100, dt=0.1 to t=1", False,
+         lambda dev: march(dev, "euler", heat1d.rhs,
+                           lambda dev: heat1d.default_config(100),
+                           lambda p, dev: heat1d.clamp_bc(heat1d.initial_condition(
+                               heat1d.grid(100, device=dev)), p),
+                           0.1, 1.0)),
+        ("heat1d_dg step refined to 1e-8", True,
+         lambda dev: dg_step(dev, 1e-8, True)),
+        (f"upwind march, dt=0.01 to t={0.01 * UPWIND_STEPS:g}", False,
+         lambda dev: march(dev, "euler", heat1d_dg.rhs,
+                           lambda dev: heat1d_dg.upwind_config(device=dev),
+                           lambda p, dev: heat1d_dg.initial_condition(p),
+                           0.01, 0.01 * UPWIND_STEPS)),
+    ]
+    for tag, exact, run in cases:
+        t0 = time.perf_counter()
+        uc, oc, ic, fc = run("cpu")
+        t1 = time.perf_counter()
+        ug, og, ig, fg = run("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        diff = float((ug.cpu() - uc).abs().max())
+        limit = 1e-12 if exact else len(og) * 6e-6
+        log(f"[small] {tag}: card outer {sum(og)} inner {sum(ig)} failed {fg} "
+            f"({t2 - t1:.3f} s); CPU outer {sum(oc)} inner {sum(ic)} failed {fc} "
+            f"({t1 - t0:.3f} s); max|u_card - u_cpu| {diff:.3e} (limit {limit:.1e})")
+        if (og, ig) != (oc, ic):
+            log(f"[small] {tag}: per-step outer card {og} CPU {oc}; inner "
+                f"card {ig} CPU {ic}")
+            if exact:
+                raise AssertionError(f"small problems {tag}: the counts differ")
+        if not (diff <= limit and fg == fc == 0):
+            raise AssertionError(f"small problems {tag}: states differ or a "
+                                 "step failed")
+    u_df, *_ = dg_step("cuda", 1e-8, True)
+    u_ref, *_ = dg_step("cuda", 1e-10, False)
+    err = float((u_df - u_ref).abs().max())
+    log(f"[small] heat1d_dg step refined to 1e-8 against the f64 oracle step "
+        f"(tol_rel 1e-10) on the card: max diff {err:.3e} (limit 1e-7)")
+    if not err <= 1e-7:
+        raise AssertionError("small problems: the refined DG step misses the oracle")
+
+
+def phase_implicit_grad(torch, nkt, bratu2d):
+    """Path (p): the differentiable solve.  d(Σu*)/dλ of the 2-D Bratu root
+    at 512², f64, λ = 5 (a 0-d tensor), forward ``newton_krylov_jit`` CG +
+    DST (``tol_rel=1e-12``), adjoint CG preconditioned by the DST apply
+    built once at u₀, against central differences (ε = 1e-6·λ), rtol
+    1e-5."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    n, f64 = GRAD_N, torch.float64
+    dx = 1.0 / (n + 1)
+
+    def F(u, lam):
+        return bratu2d.residual_scaled(u, bratu2d.Params(dx=dx, lam=lam))
+
+    u0 = bratu2d.initial_guess(n, f64, "cuda")
+    lam0 = torch.tensor(GRAD_LAM, dtype=f64, device="cuda")
+    M0 = fft_poisson()(nkt.JacobianOperator(F, u0, lam0))
+    applies = [0]
+
+    def M_adj(r):
+        applies[0] += 1
+        return M0(r)
+
+    solve = nkt.make_implicit_solver(
+        F, algo="cg", M=fft_poisson(), tol_rel=1e-12, adjoint_algo="cg",
+        adjoint_kwargs={"M": M_adj})
+    lam = lam0.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = solve(u0, lam)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (grad,) = torch.autograd.grad(u.sum(), lam)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    eps = 1e-6 * GRAD_LAM
+    with torch.no_grad():
+        up = solve(u0, lam0 + eps).sum()
+        um = solve(u0, lam0 - eps).sum()
+    fd = float(up - um) / (2 * eps)
+    rel = abs(float(grad) - fd) / abs(fd)
+    log(f"[implicit grad] n={n} lambda={GRAD_LAM} f64: d(sum u*)/dlambda "
+        f"{float(grad):.10e} adjoint vs central differences {fd:.10e}: rel "
+        f"{rel:.3e} (limit 1e-5); forward {t1 - t0:.3f} s, backward "
+        f"{t2 - t1:.3f} s, adjoint CG {applies[0] - 1} inner iterations "
+        f"({applies[0]} DST applies)")
+    if not (rel <= 1e-5 and bool(torch.isfinite(u).all())):
+        raise AssertionError("implicit grad: the adjoint gradient disagrees "
+                             "with central differences")
 
 
 def phase_spectral(torch, nkt, bratu2d):
@@ -1706,6 +2088,27 @@ def main() -> int:
         f"launches = {applies_ptc} Chebyshev preconditioner applies")
     counted("nldiff2d solve", (), lambda: phase_nldiff(torch, nkt))
     counted("convdiff c=25 + ILU0 64²", (), lambda: phase_convdiff_ilu(torch, nkt))
+
+    # this slice's paths (l)-(p): time stepping and the differentiable
+    # solve; only (l) runs a kernel (K4, one launch per Chebyshev apply)
+    heat_launches = {}
+    u_cheb, applies_heat = counted(
+        "heat march cheb-pcg", ("chebyshev_apply",),
+        lambda: phase_heat_cheb(torch, nkt), into=heat_launches)
+    k4_heat = heat_launches["chebyshev_apply"]
+    log(f"[launches] heat march cheb-pcg: K4 {k4_heat} launches = "
+        f"{applies_heat} Chebyshev preconditioner applies")
+    if k4_heat != applies_heat:
+        raise AssertionError("K4 launches on the heat march are not one per "
+                             "Chebyshev preconditioner apply")
+    launches["chebyshev_apply"] += k4_heat
+    counted("heat march dst integrate_scan", (),
+            lambda: phase_heat_dst_scan(torch, nkt, u_cheb))
+    del u_cheb
+    counted("heat drivers and resume", (), lambda: phase_heat_drivers(torch, nkt))
+    counted("small problems, card against cpu", (),
+            lambda: phase_small_problems(torch, nkt))
+    counted("implicit grad", (), lambda: phase_implicit_grad(torch, nkt, bratu2d))
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)

@@ -26,9 +26,11 @@ do so on the card unless the caller names a device.
 This package imports ``torch`` and never ``jax``.
 """
 
-from . import df32, fftprec, kernels, mg, precond, problems, solvers, spectral
+from . import (df32, fftprec, kernels, mg, precond, problems, solvers, spectral,
+               timestep)
 from .continuation import pseudo_transient
 from .forcing import EisenstatWalker, Fixed, Forcing
+from .implicit import make_implicit_solver
 from .newton import (NewtonInfo, NewtonOptions, Stats, newton_krylov,
                      newton_krylov_jit)
 from .operator import (
@@ -40,6 +42,7 @@ from .operator import (
 )
 from .solvers import KrylovResult, bicgstab, cg, cgls, fgmres, gmres
 from .spaces import EuclideanSpace, MaskedSpace, VectorSpace
+from .timestep import integrate, integrate_scan
 
 __all__ = [
     "newton_krylov",
@@ -65,6 +68,9 @@ __all__ = [
     "VectorSpace",
     "EuclideanSpace",
     "MaskedSpace",
+    "integrate",
+    "integrate_scan",
+    "make_implicit_solver",
     "df32",
     "fftprec",
     "kernels",
@@ -73,4 +79,5 @@ __all__ = [
     "problems",
     "solvers",
     "spectral",
+    "timestep",
 ]

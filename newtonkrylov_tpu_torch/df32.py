@@ -1,13 +1,13 @@
 """Double-float ("df32") arithmetic: ~f64 accuracy from paired f32.
 
-Counterpart of ``newtonkrylov_tpu/df32.py``, the subset the 2-D Bratu
-flagship, the convection–diffusion residual, the 1-D Bratu residual and the
-Kelley 2×2 system use.  A df32 value is a pair
-``(hi, lo)`` of same-shape float32 tensors with ``hi = fl(hi + lo)``; it
-represents ``hi + lo`` with ~49 effective mantissa bits.  The Newton
-driver's ``residual_df`` path evaluates the acceptance residual in this
-arithmetic, so ‖F‖ can be driven to 1e-8·‖F₀‖ while the state is carried
-as float32 words.
+Counterpart of ``newtonkrylov_tpu/df32.py``: the double-word arithmetic,
+the stencil combinators, the double-word matrix–vector product
+(:func:`df_matvec`), the self-check and the floor estimate.  A df32 value
+is a pair ``(hi, lo)`` of same-shape float32 tensors with
+``hi = fl(hi + lo)``; it represents ``hi + lo`` with ~49 effective mantissa
+bits.  The Newton driver's ``residual_df`` path evaluates the acceptance
+residual in this arithmetic, so ‖F‖ can be driven to 1e-8·‖F₀‖ while the
+state is carried as float32 words.
 
 .. warning:: **Strict IEEE float32 arithmetic only.**  The error-free
    transforms (``two_sum``, ``two_prod``) break under contraction
@@ -31,9 +31,9 @@ from .utils import default_device
 __all__ = [
     "DF", "two_sum", "fast_two_sum", "two_prod",
     "df_from_f64", "df_to_f64", "df_from_f32", "tree_add_f32",
-    "add", "add_f32", "neg", "sub", "mul", "exp", "norm_hi",
+    "add", "add_f32", "neg", "sub", "mul", "mul_f32", "exp", "norm_hi",
     "df_map", "shift", "neighbor_sum", "scale_pow2", "scale_const", "scaled_exp",
-    "selfcheck", "floor_estimate",
+    "df_matvec", "selfcheck", "floor_estimate",
 ]
 
 
@@ -135,6 +135,13 @@ def mul(a: DF, b: DF) -> DF:
     """Double-word × double-word (~25 flops)."""
     p, e = two_prod(a.hi, b.hi)
     e = e + (a.hi * b.lo + a.lo * b.hi)
+    return DF(*fast_two_sum(p, e))
+
+
+def mul_f32(a: DF, b) -> DF:
+    """Double-word × single f32."""
+    p, e = two_prod(a.hi, b)
+    e = e + a.lo * b
     return DF(*fast_two_sum(p, e))
 
 
@@ -253,6 +260,45 @@ def scaled_exp(a: DF, c: float) -> DF:
     out = exp(add(a, DF(torch.full_like(a.hi, lnc_hi),
                         torch.full_like(a.hi, lnc_lo))))
     return out if cf > 0 else neg(out)
+
+
+def _comp_sum_last(P, E):
+    """Compensated tree sum of ``P`` along the last axis: a two_sum at every
+    level keeps the running sum error-free, and the error terms fold into
+    ``E`` with plain adds (each ≤ εΣ|P|, so their own rounding is
+    O(ε²Σ|P|)).  The axis is zero-padded to a power of two.  Returns
+    ``(s, e)`` with Σ = s + e to ~2⁻⁴⁶."""
+    n = P.shape[-1]
+    n2 = 1 << max(n - 1, 1).bit_length()
+    if n2 != n:
+        P = torch.nn.functional.pad(P, (0, n2 - n))
+        E = torch.nn.functional.pad(E, (0, n2 - n))
+    while P.shape[-1] > 1:
+        m = P.shape[-1] // 2
+        s, e = two_sum(P[..., :m], P[..., m:])
+        E = E[..., :m] + E[..., m:] + e
+        P = s
+    return P[..., 0], E[..., 0]
+
+
+def df_matvec(A: DF, x: DF) -> DF:
+    """y = A @ x in double-float, for dense-operator residuals (heat1d_dg's
+    ``D1m @ (D1p @ u)``).
+
+    ``A`` is a df32 split (n, m) of the matrix (:func:`df_from_f64`), ``x``
+    a df32 vector of length m.  The hi×hi products are exact
+    (:func:`two_prod`) and summed by :func:`_comp_sum_last`; the hi×lo and
+    lo×hi cross terms, ~ε relative to the main term, are full-f32 matrix
+    products (the JAX package runs them at ``Precision.HIGHEST``), so this
+    raises while TF32 is allowed (ROADMAP.md Queue 3 hazard (a)).
+    """
+    from .fftprec import _check_matmul_precision
+
+    _check_matmul_precision()
+    P, E = two_prod(A.hi, x.hi[None, :])
+    s, e = _comp_sum_last(P, E)
+    small = e + (torch.mv(A.hi, x.lo) + torch.mv(A.lo, x.hi))
+    return DF(*fast_two_sum(s, small))
 
 
 def selfcheck(device=None) -> bool:

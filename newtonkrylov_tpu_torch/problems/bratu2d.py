@@ -125,8 +125,9 @@ class _AlignedResidual(torch.autograd.Function):
         raise NotImplementedError(
             "the aligned Bratu residual has no adjoint (J.rmv, cgls, "
             "cond2_estimate): its JVP is the K1 kernel, which has no "
-            "transpose; the JAX package's rmv fails on this residual too. "
-            "Use residual_scaled on the plain layout")
+            "transpose; the JAX package's rmv fails on this residual too "
+            "(ROADMAP.md Queue 3 item 15). Use residual_scaled on the plain "
+            "layout")
 
 
 def residual_scaled_aligned(u, p: Params):

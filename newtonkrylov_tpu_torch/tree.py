@@ -1,9 +1,9 @@
 """Vector primitives over solver states.
 
-Counterpart of ``newtonkrylov_tpu/tree.py``.  A state is a tensor or a tuple
-of tensors (in practice a :class:`~newtonkrylov_tpu_torch.df32.DF` pair);
-these helpers map over its tensor leaves and keep each leaf's dtype and
-device.  Global reductions (:func:`tree_vdot`, :func:`tree_norm`) are the
+Counterpart of ``newtonkrylov_tpu/tree.py``.  A state is a tensor or a
+tuple (or dict) of tensors (in practice a
+:class:`~newtonkrylov_tpu_torch.df32.DF` pair); these helpers map over its
+tensor leaves and keep each leaf's dtype and device.  Global reductions (:func:`tree_vdot`, :func:`tree_norm`) are the
 points a vector space may re-weight or all-reduce — see
 :mod:`newtonkrylov_tpu_torch.spaces`.
 """
@@ -20,6 +20,7 @@ __all__ = [
     "tree_add",
     "tree_sub",
     "tree_axpy",
+    "tree_axpby",
     "tree_zeros_like",
     "tree_where",
     "tree_size",
@@ -35,16 +36,23 @@ __all__ = [
 
 
 def tree_map(fn, x, *rest):
-    """Apply ``fn`` leafwise over congruent states (tensors or tuples)."""
+    """Apply ``fn`` leafwise over congruent states (tensors, tuples, named
+    tuples or dicts)."""
     if isinstance(x, tuple):
         vals = [tree_map(fn, *ls) for ls in zip(x, *rest)]
         return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, x[k], *(r[k] for r in rest)) for k in sorted(x)}
     return fn(x, *rest)
 
 
 def tree_leaves(x) -> list:
+    """The leaves in order: tuples by position, dicts by sorted key (the
+    JAX package's order)."""
     if isinstance(x, tuple):
         return [leaf for part in x for leaf in tree_leaves(part)]
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in tree_leaves(x[k])]
     return [x]
 
 
@@ -70,6 +78,11 @@ def tree_sub(x, y):
 def tree_axpy(a, x, y):
     """y + a*x."""
     return tree_map(lambda xl, yl: yl + a * xl, x, y)
+
+
+def tree_axpby(a, x, b, y):
+    """a*x + b*y."""
+    return tree_map(lambda xl, yl: a * xl + b * yl, x, y)
 
 
 def tree_scale(a, x):

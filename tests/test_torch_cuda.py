@@ -584,3 +584,144 @@ def test_nldiff2d_on_card_matches_cpu(cuda_device):
     assert (ig.stats.outer_iterations, ig.stats.inner_iterations) == (
         ic.stats.outer_iterations, ic.stats.inner_iterations)
     assert float((ug.cpu() - uc).abs().max()) <= 1e-9
+
+
+# -- time stepping and the differentiable solve (chip_smoke.py paths (l)-(p)) --
+
+
+def _heat_march(cuda_device, n, M, driver="integrate", steps=5, **kw):
+    """The heat march of chip_smoke.py (a = 0.01, Δt = 0.05, u₀ =
+    sin(πx)sin(πy), f32 Krylov CG + df32 acceptance) at n² for ``steps``
+    steps; returns (result, params, u₀, g)."""
+    import math
+
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.timestep import implicit_euler_df
+
+    p = heat2d.default_config(n, a=0.01)
+    u0 = heat2d.initial_condition(n, torch.float64, cuda_device)
+    g = 1.0 / (1.0 + 0.05 * p.a * (8.0 / p.dx ** 2) * math.sin(math.pi * p.dx / 2) ** 2)
+    nkw = dict(algo="cg", M=M, precond_refresh="once", krylov_dtype=torch.float32,
+               residual_df=implicit_euler_df(heat2d.rhs_df), tol_rel=1e-8, tol_abs=0.0)
+    if driver == "integrate":
+        r = nkt.integrate("euler", heat2d.rhs, u0, p, 0.05, 0.05 * steps,
+                          newton_kwargs=nkw, **kw)
+    else:
+        r = nkt.integrate_scan("euler", heat2d.rhs, u0, p, 0.05, steps,
+                               newton_kwargs=nkw, **kw)
+    return r, p, u0, g
+
+
+def test_heat_march_cheb_pcg_launches_k4_on_card(cuda_device):
+    """Path (l) at 128², 5 steps: ``chebyshev(16)`` on the Gershgorin box
+    [−1 − 8o, −1] runs K4 once per apply; no failed step, every step's f64
+    residual within 1.2e-8 of ‖G(uₙ)‖, the state g⁵·u₀ within 1e-6·max|u₀|."""
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.timestep import StepParams, implicit_euler
+
+    n = 128
+    o = 0.05 * 0.01 * (n + 1) ** 2
+    applies = [0]
+    cheb = chebyshev(16, bounds=(-1.0 - 8.0 * o, -1.0))
+
+    def counting(A):
+        M = cheb(A)
+
+        def apply(r):
+            applies[0] += 1
+            return M(r)
+
+        return apply
+
+    tk.reset_launch_counts()
+    r, p, u0, g = _heat_march(cuda_device, n, counting, save_history=True)
+    assert r.n_failed == 0
+    assert tk.LAUNCHES["chebyshev_apply"] == applies[0] > 0
+    assert float((r.u - g ** 5 * u0).abs().max()) <= 1e-6 * float(u0.abs().max())
+    G = implicit_euler(heat2d.rhs)
+    for k in range(5):
+        sp = StepParams(un=r.history[k], dt=0.05, p=p, t=0.05 * (k + 1))
+        assert float(torch.linalg.vector_norm(G(r.history[k + 1], sp))) <= 1.2e-8 * float(
+            torch.linalg.vector_norm(G(r.history[k], sp)))
+
+
+def test_heat_scan_dst_matches_integrate_on_card(cuda_device):
+    """Paths (m) and (n) at 128², DST-PCG: ``integrate_scan`` (history every
+    5th step, float64 times) ends on ``integrate``'s state bit for bit, about
+    one inner an outer, and on g⁵·u₀ within 1e-6·max|u₀|."""
+    r1, _, u0, g = _heat_march(cuda_device, 128, fft_poisson())
+    r2, *_ = _heat_march(cuda_device, 128, fft_poisson(), driver="scan", save_every=5)
+    assert int(r2.n_failed) == 0 and r1.n_failed == 0
+    assert _bitwise(r1.u, r2.u)
+    assert r2.history.shape == (1, 128, 128) and _bitwise(r2.history[0], r2.u)
+    assert float(r2.ts[0]) == 0.25 and r2.ts.dtype == torch.float64
+    assert torch.equal(r1.outer_iterations, r2.outer_iterations)
+    assert int(r2.inner_iterations.sum()) <= int(r2.outer_iterations.sum()) + 5
+    assert float((r2.u - g ** 5 * u0).abs().max()) <= 1e-6 * float(u0.abs().max())
+
+
+def test_heat_resume_on_card_bitwise(cuda_device, tmp_path):
+    """Path (n) at 128²: a march checkpointed every 2 steps, resumed from
+    its ``march_2`` snapshot, reproduces the uninterrupted 4-step march bit
+    for bit in the remaining 2 steps."""
+    full, *_ = _heat_march(cuda_device, 128, fft_poisson(), steps=4)
+    _heat_march(cuda_device, 128, fft_poisson(), steps=2,
+                checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    resumed, *_ = _heat_march(cuda_device, 128, fft_poisson(), steps=4,
+                              checkpoint_dir=str(tmp_path), resume=True)
+    assert len(resumed.outer_iterations) == 2
+    assert _bitwise(resumed.u, full.u)
+
+
+@pytest.mark.parametrize("case", ["euler", "midpoint", "trapezoid", "dg_step"])
+def test_small_problems_on_card_match_cpu(cuda_device, case):
+    """Path (o): the spring (Δt = 0.01, 5 steps) with each stepper, and one
+    heat1d_dg step refined to 1e-8 (full GMRES, df32), on the card against
+    the CPU: the same per-step counts, states within 1e-12."""
+    from newtonkrylov_tpu_torch.problems import heat1d_dg, spring
+    from newtonkrylov_tpu_torch.timestep import (StepParams, implicit_euler,
+                                                 implicit_euler_df)
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        if case == "dg_step":
+            p = heat1d_dg.dg_config(device=dev)
+            u0 = heat1d_dg.initial_condition(p)
+            u, info = nkt.newton_krylov_jit(
+                implicit_euler(heat1d_dg.rhs), u0, StepParams(u0, 1e-4, p, 1e-4),
+                algo="gmres", tol_rel=1e-8, max_niter=10,
+                residual_df=implicit_euler_df(heat1d_dg.rhs_df),
+                krylov_kwargs={"restart": None, "itmax": 200})
+            assert bool(info.solved)
+            out[str(dev)] = (u, (info.stats.outer_iterations, info.stats.inner_iterations))
+        else:
+            r = nkt.integrate(case, spring.rhs, spring.initial_condition(device=dev),
+                              spring.default_config(), 0.01, 0.05)
+            assert r.n_failed == 0
+            out[str(dev)] = (r.u, (r.outer_iterations.tolist(), r.inner_iterations.tolist()))
+    (uc, cc), (ug, cg) = out["cpu"], out[str(cuda_device)]
+    assert cg == cc
+    assert float((ug.cpu() - uc).abs().max()) <= 1e-12
+
+
+def test_implicit_grad_on_card(cuda_device):
+    """Path (p) at 128²: d(Σu*)/dλ of the 2-D Bratu root (f64, λ = 5 a 0-d
+    tensor; forward CG + DST, adjoint CG with the DST built at u₀) against
+    central differences (ε = 1e-6·λ), rtol 1e-5."""
+    n = 128
+    dx = 1.0 / (n + 1)
+
+    def F(u, lam):
+        return tb.residual_scaled(u, tb.Params(dx=dx, lam=lam))
+
+    u0 = tb.initial_guess(n, torch.float64, cuda_device)
+    lam0 = torch.tensor(5.0, dtype=torch.float64, device=cuda_device)
+    M0 = fft_poisson()(nkt.JacobianOperator(F, u0, lam0))
+    solve = nkt.make_implicit_solver(F, algo="cg", M=fft_poisson(), tol_rel=1e-12,
+                                     adjoint_algo="cg", adjoint_kwargs={"M": M0})
+    lam = lam0.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(solve(u0, lam).sum(), lam)
+    eps = 5e-6
+    with torch.no_grad():
+        fd = float(solve(u0, lam0 + eps).sum() - solve(u0, lam0 - eps).sum()) / (2 * eps)
+    assert abs(float(grad) - fd) <= 1e-5 * abs(fd)
