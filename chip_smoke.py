@@ -62,7 +62,7 @@ Phases (each raises on failure; the script exits non-zero after any):
     ``bench.py``'s u₀;
 13. the host-stepped driver, globalization and host-side factorizations:
     (g) the reference's 1-D Bratu gallery at N = 10⁴ in f64 through
-    ``newton_krylov`` (CG with three forcings, GMRES + ILU(0) in host C++ by
+    ``newton_krylov`` (CG with three forcings at N = 2,000, GMRES + ILU(0) in host C++ by
     bandwidth and by offsets, and GMRES + banded direct solve to
     max|u − u*| ≤ 5e-6, the direct ones in at most two inners an outer;
     plain GMRES, BiCGStab and CGLS must fail), with the card's refined PCR
@@ -90,18 +90,33 @@ Phases (each raises on failure; the script exits non-zero after any):
     cost of one host-ILU(0) GMRES iteration at N = 10⁴ with its two copies
     and its C++ solve timed apart (measurements only);
 15. time stepping and the differentiable solve (run after 13): (l) the 2-D
-    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 20
+    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 8
     backward-Euler steps of Δt = 0.05 through ``integrate``, f32 Krylov +
     df32) with Cheb-PCG on the Gershgorin box of the step Jacobian — one K4
-    launch per apply — gated on the exact decay g²⁰·u₀ and each step's f64
+    launch per apply — gated on the exact decay g⁸·u₀ and each step's f64
     residual; (m) the same march through ``integrate_scan`` with DST-PCG;
     (n) at 256² the two drivers bit for bit and a checkpointed march
-    resumed bit for bit; (o) the spring (three steppers, 10 steps), heat1d,
-    a refined heat1d_dg step and the upwind march (10 steps) on the card
-    against the CPU; (p) d(Σu*)/dλ of the 2-D Bratu root at 512² by the
-    adjoint against central differences.
+    resumed bit for bit; (o) the spring (three steppers, 5 steps), heat1d
+    (3 steps), a refined heat1d_dg step and the upwind march (5 steps) on
+    the card against the CPU; (p) d(Σu*)/dλ of the 2-D Bratu root at 512²
+    by the adjoint against central differences;
+16. the sharded solvers, path (q): a world-1 NCCL process group (a file
+    store in a temporary directory, destroyed at the end) and a 1×1 mesh,
+    every reduction an NCCL all-reduce and every global-DST product a
+    reduce-scatter (one card: the ghost exchange has no neighbour and sends
+    no message): (q1) the flagship at 2048² through
+    ``newton_krylov_sharded`` (overlapped exchange, f32 CG, df32 acceptance
+    with the words exchanged apart, ``fft_poisson(scope="global",
+    precision="high")`` built once), gated on ``solved``, the f64 true
+    residual and the unsharded flagship's counts; (q2) Ψtc through the same
+    driver seam, residuals sign-flipped, δ₀ = (n+1)²; (q3) Cheb-PCG with
+    the sharded ``chebyshev(16, lo_frac=1/300)`` (an exchange and the plain
+    stencil per polynomial step: no K4), its counts beside (cheb-pcg)'s;
+    (q4) ``integrate_scan_sharded``, the heat march of (m) for 5 steps with
+    the global DST, gated on (m)'s per-step counts and the decay g⁵.  Each
+    prints its wall and the collectives the port's wrappers issued.
 
-Launch counts are zeroed just before each of phases 6–13 and 15 and read
+Launch counts are zeroed just before each of phases 6–13, 15 and 16 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
 the two Cheb-PCG paths at 2048², the Ψtc path and the heat march).  The
@@ -138,7 +153,7 @@ CONV_REF = {("adi", 256): (10, 441), ("mg-general", 256): (8, 27),
 TWO_GRID_REF = (8, 28)
 FLAGSHIP_TPU_REF = (6, 11)  # the DST-PCG flagship at 2048² (BENCH_r05.json)
 GALLERY_N = 10_000  # the reference's 1-D Bratu size (examples/bratu_1d.py)
-GALLERY_SMALL_N = 2_000  # the Fixed(0.1) and exact-Newton CG recipes (time)
+GALLERY_SMALL_N = 2_000  # the three CG recipes (time)
 PIPELINED_ITMAX = 50  # inner cap of path (b); plain CG takes ≤ 2 an outer
 PTC_LAM = 6.8     # path (i): just below the 2-D Bratu fold (λ* ≈ 6.808)
 # Path (i) runs full GMRES (a basis of up to PTC_ITMAX f32 vectors, 9.6 GB
@@ -150,20 +165,25 @@ NLDIFF_N = 256    # path (j): the size of the c = 25 MG-general lane
 # capped at one restart cycle.  Uncapped, a stalled outer runs to the
 # default itmax 2n = 3,204 FGMRES steps of 30 nested steps each.
 BVP_NESTED_ITMAX = 40
-# Paths (l)–(n): the 2-D heat equation, a = 0.01, u₀ = sin(πx)sin(πy), 20
-# backward-Euler steps of Δt = 0.05 to t = 1 (8,400× the explicit limit at
-# 2048²)
+# Paths (l)–(n): the 2-D heat equation, a = 0.01, u₀ = sin(πx)sin(πy),
+# backward-Euler steps of Δt = 0.05 (8,400× the explicit limit at 2048²):
+# 8 to t = 0.4 (20 to t = 1 before path (q) needed the time)
 HEAT_N = 2048
 HEAT_SMALL_N = 256
 HEAT_A = 0.01
 HEAT_DT = 0.05
-HEAT_STEPS = 20
-# Path (o): the spring at the reference's Δt = 0.01 for 10 steps (to t = 0.1,
-# not its t = 2), the upwind march for 10 (to t = 0.1, not the JAX test's
-# 0.2): a step is host-bound at 0.14–0.8 s on either device, so the
-# reference's 200 spring steps would take ~7 minutes for three steppers
-SPRING_STEPS = 10
-UPWIND_STEPS = 10
+HEAT_STEPS = 8
+# Path (o): the spring at the reference's Δt = 0.01 for 5 steps (to t = 0.05,
+# not its t = 2), the upwind march for 5 (to t = 0.05, not the JAX test's
+# 0.2), heat1d at Δt = 0.1 to t = 0.3 (not 1): a step is host-bound at
+# 0.14–0.8 s on either device, so the reference's 200 spring steps would
+# take ~7 minutes for three steppers
+SPRING_STEPS = 5
+UPWIND_STEPS = 5
+HEAT1D_T = 0.3
+# Path (q): the sharded solvers on a world-1 NCCL group, the heat march of
+# (m) cut to 5 steps
+SHARDED_HEAT_STEPS = 5
 GRAD_N = 512      # path (p): the differentiable solve
 GRAD_LAM = 5.0
 
@@ -317,6 +337,7 @@ def phase_environment(torch):
         for line in rec["log"].splitlines():
             if line.strip():
                 log(f"[build] {line.strip()}")
+    return smi
 
 
 def _inputs(torch, k, dev):
@@ -607,7 +628,7 @@ def phase_aligned_small(torch, nkt, bratu2d):
 
 
 def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once",
-                u0=None, krylov_kwargs=None):
+                u0=None, krylov_kwargs=None, keep=None):
     """The flagship configuration at n² with preconditioner factory ``M``:
     f32 Krylov, df32 acceptance residual, ``M`` built once at u₀ (or every
     outer, ``refresh="outer"``), from ``entry()``'s f32 guess unless an f64
@@ -642,14 +663,16 @@ def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once",
         raise AssertionError(f"{tag}: solve returned a malformed state")
     if not fu <= 1e-8 * f0 + 1e-12:
         raise AssertionError(f"{tag}: f64 true residual above 1e-8·‖F₀‖")
+    if keep is not None:  # the caller keeps the state
+        keep["u"] = u
     return info
 
 
-def phase_flagship(torch, nkt, bratu2d, pass_name):
+def phase_flagship(torch, nkt, bratu2d, pass_name, keep=None):
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
 
     return _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
-                       f"flagship {pass_name}, DST(high)")
+                       f"flagship {pass_name}, DST(high)", keep=keep)
 
 
 def phase_gmres_flagship(torch, nkt, bratu2d, pass_name):
@@ -909,7 +932,7 @@ def phase_pipelined(torch, nkt, bratu2d, plain):
 
 def phase_gallery(torch, nkt):
     """Path (g): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
-    at N = 10⁴ (the ``Fixed(0.1)`` and exact-Newton CG recipes at N = 2,000),
+    at N = 10⁴ (the three CG recipes at N = 2,000),
     λ = 3.51382, in f64 through ``newton_krylov``, as the example calls it.
     The positive recipes must solve with max|u − u*| ≤ 5e-6 against the
     closed form (scaled by Δx² at N = 2,000); GMRES + banded direct (PCR
@@ -924,11 +947,11 @@ def phase_gallery(torch, nkt):
 
     f64 = torch.float64
     negative = dict(max_niter=4, krylov_kwargs={"itmax": 60})
-    # (tag, N, solves, one inner an outer, kwargs); two of the three CG
-    # recipes (tens of thousands of host-stepped iterations at N = 10⁴) run
-    # at GALLERY_SMALL_N to keep the script's time
+    # (tag, N, solves, one inner an outer, kwargs); the three CG recipes
+    # (tens of thousands of host-stepped iterations at N = 10⁴) run at
+    # GALLERY_SMALL_N to keep the script's time
     recipes = [
-        ("cg", GALLERY_N, True, False, dict(algo="cg")),
+        ("cg", GALLERY_SMALL_N, True, False, dict(algo="cg")),
         ("cg + Fixed(0.1)", GALLERY_SMALL_N, True, False,
          dict(algo="cg", forcing=nkt.Fixed(0.1))),
         ("cg, exact Newton", GALLERY_SMALL_N, True, False,
@@ -1333,12 +1356,12 @@ def _gate_decay(torch, tag, u, u0, g, steps):
 
 def phase_heat_cheb(torch, nkt):
     """Path (l): the 2-D heat equation at 2048², a = 0.01, u₀ =
-    sin(πx)sin(πy), 20 backward-Euler steps of Δt = 0.05 (8,400× the
+    sin(πx)sin(πy), 8 backward-Euler steps of Δt = 0.05 (8,400× the
     explicit limit) through ``integrate`` with Cheb-PCG:
     ``chebyshev(16, bounds=(−1 − 8o, −1))``, the probed Gershgorin box of
     J = −I + o·S, built once a step (one K4 launch per apply on the card).
     Gates: no failed step, every step's f64 residual ‖G(uₙ₊₁)‖ ≤
-    1.2e-8·‖G(uₙ)‖, the final state g²⁰·u₀ within 1e-6·max|u₀|.  Logs the
+    1.2e-8·‖G(uₙ)‖, the final state g⁸·u₀ within 1e-6·max|u₀|.  Logs the
     per-step counts, the wall, whether the df32 floor clamp engaged, and
     one step's device busy share.  Returns (the final state, the Chebyshev
     applies, K4's included in the profiled step)."""
@@ -1415,7 +1438,7 @@ def phase_heat_dst_scan(torch, nkt, u_cheb):
     """Path (m): the march of (l) through ``integrate_scan`` with DST-PCG
     (``fft_poisson()``, exact for this constant-coefficient J), saving every
     5th step.  Gates: no failed step, the history's shape and times, the
-    final state within 1e-7·max|u₀| of (l)'s and g²⁰·u₀ within
+    final state within 1e-7·max|u₀| of (l)'s and g⁸·u₀ within
     1e-6·max|u₀|."""
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
     from newtonkrylov_tpu_torch.problems import heat2d
@@ -1442,28 +1465,31 @@ def phase_heat_dst_scan(torch, nkt, u_cheb):
         raise AssertionError("heat dst scan: a step's solve failed")
     if tuple(r.history.shape) != (HEAT_STEPS // 5, n, n):
         raise AssertionError("heat dst scan: history has the wrong shape")
-    if not all(abs(a - b) <= 1e-12 for a, b in zip(ts, (0.25, 0.5, 0.75, 1.0))):
+    want_ts = [HEAT_DT * k for k in range(5, HEAT_STEPS + 1, 5)]
+    if not (len(ts) == len(want_ts)
+            and all(abs(a - b) <= 1e-12 for a, b in zip(ts, want_ts))):
         raise AssertionError("heat dst scan: wrong ts")
     if not diff <= limit:
         raise AssertionError("heat dst scan: the final state differs from "
                              "the Cheb-PCG march's")
     _gate_decay(torch, "heat dst scan", r.u, u0, g, HEAT_STEPS)
+    return outers, inners
 
 
 def phase_heat_drivers(torch, nkt):
-    """Path (n) at 256², DST-PCG: a 15-step ``integrate`` march with
+    """Path (n) at 256², DST-PCG: a 10-step ``integrate`` march with
     ``checkpoint_every=5`` into a temporary directory is the uninterrupted
-    reference; ``integrate_scan`` over 10 steps equals its ``march_10``
-    snapshot bit for bit; with ``march_15`` removed, the march resumed from
-    ``march_10`` runs only the remaining 5 steps and ends on the
-    reference's state bit for bit."""
+    reference; ``integrate_scan`` over 5 steps equals its ``march_5``
+    snapshot bit for bit; with ``march_10`` removed, the march resumed from
+    ``march_5`` runs only the remaining 5 steps and ends on the reference's
+    state bit for bit (15 and 10 steps before PR 9's trims)."""
     import tempfile
 
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
     from newtonkrylov_tpu_torch.problems import heat2d
     from newtonkrylov_tpu_torch.utils.checkpointing import load_checkpoint
 
-    n, steps = HEAT_SMALL_N, 15
+    n, steps, k = HEAT_SMALL_N, 10, 5
     p, _, u0, _ = _heat_setup(torch, n)
     kw = _heat_kwargs(fft_poisson())
     with tempfile.TemporaryDirectory() as d:
@@ -1471,23 +1497,23 @@ def phase_heat_drivers(torch, nkt):
                              newton_kwargs=kw, checkpoint_dir=d,
                              checkpoint_every=5)
         written = sorted(os.listdir(d))
-        scan = nkt.integrate_scan("euler", heat2d.rhs, u0, p, HEAT_DT, 10,
+        scan = nkt.integrate_scan("euler", heat2d.rhs, u0, p, HEAT_DT, k,
                                   newton_kwargs=kw)
-        at_10 = load_checkpoint(os.path.join(d, "march_10.npz"), u0)
-        same = _bitwise_equal(torch, at_10.u, scan.u)
-        os.remove(os.path.join(d, "march_15.npz"))
+        at_k = load_checkpoint(os.path.join(d, f"march_{k}.npz"), u0)
+        same = _bitwise_equal(torch, at_k.u, scan.u)
+        os.remove(os.path.join(d, f"march_{steps}.npz"))
         resumed = nkt.integrate("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_DT * steps,
                                 newton_kwargs=kw, checkpoint_dir=d, resume=True)
     resumed_same = _bitwise_equal(torch, full.u, resumed.u)
-    log(f"[heat drivers] n={n}: checkpoints {written} (t at march_10: "
-        f"{at_10.t}, step {at_10.step}); integrate_scan over 10 steps vs "
-        f"integrate's march_10 bitwise {same}; resumed from march_10: "
+    log(f"[heat drivers] n={n}: checkpoints {written} (t at march_{k}: "
+        f"{at_k.t}, step {at_k.step}); integrate_scan over {k} steps vs "
+        f"integrate's march_{k} bitwise {same}; resumed from march_{k}: "
         f"{len(resumed.outer_iterations)} steps, final state bitwise {resumed_same}")
-    if written != [f"march_{k}.npz" for k in (10, 15, 5)]:
+    if written != sorted(f"march_{j}.npz" for j in range(k, steps + 1, k)):
         raise AssertionError("heat drivers: unexpected checkpoint files")
-    if not (same and at_10.step == 10):
+    if not (same and at_k.step == k):
         raise AssertionError("heat drivers: integrate and integrate_scan differ")
-    if not (resumed_same and len(resumed.outer_iterations) == steps - 10):
+    if not (resumed_same and len(resumed.outer_iterations) == steps - k):
         raise AssertionError("heat drivers: the resumed march differs from the "
                              "uninterrupted one")
 
@@ -1496,7 +1522,7 @@ def phase_small_problems(torch, nkt):
     """Path (o): the reference's small problems on the card against the
     same marches on the CPU, f64: the spring with all three steppers
     (Δt = 0.01, ``SPRING_STEPS`` steps), heat1d (m = 100, Δt = 0.1 to
-    t = 1), one heat1d_dg step refined to 1e-8 (``dg_config()``, full
+    t = ``HEAT1D_T``), one heat1d_dg step refined to 1e-8 (``dg_config()``, full
     GMRES, ``itmax=200``, df32 residual) also against an f64 oracle step on
     the card, and the upwind march (Δt = 0.01, ``UPWIND_STEPS`` steps).
     Gates: no failed step; the spring and the DG step in equal per-step
@@ -1538,12 +1564,12 @@ def phase_small_problems(torch, nkt):
                                      0.01, spring_t))
              for s in ("euler", "midpoint", "trapezoid")]
     cases += [
-        ("heat1d m=100, dt=0.1 to t=1", False,
+        (f"heat1d m=100, dt=0.1 to t={HEAT1D_T:g}", False,
          lambda dev: march(dev, "euler", heat1d.rhs,
                            lambda dev: heat1d.default_config(100),
                            lambda p, dev: heat1d.clamp_bc(heat1d.initial_condition(
                                heat1d.grid(100, device=dev)), p),
-                           0.1, 1.0)),
+                           0.1, HEAT1D_T)),
         ("heat1d_dg step refined to 1e-8", True,
          lambda dev: dg_step(dev, 1e-8, True)),
         (f"upwind march, dt=0.01 to t={0.01 * UPWIND_STEPS:g}", False,
@@ -1986,6 +2012,183 @@ def phase_slice_breakdown(torch, nkt, bratu2d, walls):
         _solve_profile(torch, tag, run, walls[key])
 
 
+def _sharded_gate(torch, bratu2d, tag, u, u0, info, wall, coll, p):
+    """Log a sharded Bratu solve (counts, wall, collectives, f64 true
+    residual) and gate it on ``solved`` and the residual; returns ‖F(u)‖."""
+    fu, f0 = _true_residual(torch, bratu2d, u, u0, p)
+    log(f"[sharded {tag}] n={N} solved={bool(info.solved)} "
+        f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
+        f"wall={wall:.3f} s  true |F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e}); "
+        f"collectives {coll}")
+    if not (bool(info.solved) and torch.isfinite(u).all()
+            and tuple(u.shape) == (N, N)):
+        raise AssertionError(f"sharded {tag}: the solve did not converge")
+    if not fu <= 1e-8 * f0 + 1e-12:
+        raise AssertionError(f"sharded {tag}: f64 true residual above 1e-8·‖F₀‖")
+    return fu
+
+
+def phase_sharded(torch, nkt, bratu2d, smi, info_f, u_f, info_c, heat_counts):
+    """Path (q): the sharded solvers on a world-1 NCCL group and a 1×1 mesh
+    (one card: each reduction a real NCCL all-reduce, each global-DST
+    product a real reduce-scatter, the ghost exchange with no neighbour).
+    (q1) the flagship through ``newton_krylov_sharded`` — the unsharded
+    flagship's counts, and max|u_sharded − u_flagship| logged with its
+    cause when it is not 0; (q2) Ψtc (``driver=pseudo_transient``,
+    residuals sign-flipped, δ₀ = (n+1)²); (q3) Cheb-PCG with the sharded
+    Chebyshev (no K4), its counts beside (cheb-pcg)'s; (q4)
+    ``integrate_scan_sharded``: (m)'s march for ``SHARDED_HEAT_STEPS``
+    steps with the global DST — (m)'s per-step counts and the decay
+    g^steps.  Every solve gated on ``solved`` and its f64 residual."""
+    import shutil
+    import tempfile
+
+    from newtonkrylov_tpu_torch import df32, halo
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.precond import chebyshev
+    from newtonkrylov_tpu_torch.problems import heat2d
+    from newtonkrylov_tpu_torch.timestep import implicit_euler_df
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils.dryrun import bratu_padded
+
+    log(f"[sharded] {smi}")
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        if not D.initialize("file://" + os.path.join(store, "store"), 1, 0,
+                            device="cuda"):
+            raise AssertionError("sharded: no process group")
+        backend = torch.distributed.get_backend()
+        mesh = halo.make_mesh((1, 1), ("i", "j"), device_type="cuda")
+        log(f"[sharded] {D.host_summary()}; mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}")
+        if backend != "nccl":
+            raise AssertionError(f"sharded: backend {backend}, not nccl")
+        axes, spec = ("i", "j"), halo.P("i", "j")
+        p = bratu2d.default_config(N, lam=LAM)
+        u0 = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda").to(
+            torch.float64)
+        F = halo.sharded_residual_2d(bratu_padded, axes, "dirichlet")
+        F_df = halo.sharded_residual_df_2d(bratu2d.residual_scaled_df_padded,
+                                           axes, "dirichlet")
+        dst = fft_poisson(axis_names=axes, scope="global", precision="high")
+        kw = dict(algo="cg", tol_rel=1e-8, krylov_dtype=torch.float32,
+                  max_niter=20)
+
+        def solve(tag, F_, kwargs, driver=None):
+            D.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u, info = halo.newton_krylov_sharded(F_, u0, p, mesh, spec,
+                                                 newton_kwargs=kwargs,
+                                                 driver=driver)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            coll = dict(D.COLLECTIVES)
+            _sharded_gate(torch, bratu2d, tag, u, u0, info, wall, coll, p)
+            return u, info, coll
+
+        # (q1) the flagship
+        u, info, coll = solve("flagship", F, dict(
+            kw, M=dst, precond_refresh="once", residual_df=F_df))
+        counts = (info.stats.outer_iterations, info.stats.inner_iterations)
+        ref = (info_f.stats.outer_iterations, info_f.stats.inner_iterations)
+        diff = float((u - u_f).abs().max())
+        log(f"[sharded flagship] outer/inner {counts[0]}/{counts[1]} beside the "
+            f"unsharded flagship's {ref[0]}/{ref[1]}; max|u_sharded - "
+            f"u_flagship| {diff:.3e}; per solve {coll['all_reduce']} NCCL "
+            f"all-reduces, {coll['reduce_scatter']} reduce-scatters "
+            f"(4 a DST apply), {coll['exchange']} exchanges, {coll['p2p']} "
+            "point-to-point messages")
+        if diff != 0.0:
+            # where the arithmetic parts: the padded residual (plain
+            # block + re-evaluated strips) against residual_scaled's
+            x = u_f.float()
+            r_pad, r_ref = F(x, p), bratu2d.residual_scaled(x, p)
+            dx = df32.df_from_f64(u_f)
+            d_pad, d_ref = F_df(dx, p), bratu2d.residual_scaled_df(dx, p)
+            log(f"[sharded flagship] the states differ: at u_flagship the f32 "
+                f"residuals differ by {float((r_pad - r_ref).abs().max()):.3e}, "
+                f"the df32 hi words by "
+                f"{float((d_pad.hi - d_ref.hi).abs().max()):.3e}")
+        if counts != ref:
+            raise AssertionError("sharded flagship: counts differ from the "
+                                 "unsharded flagship's")
+        # where its extra wall goes: one linearization of the overlapped
+        # exchanged residual against one of residual_scaled, at u_flagship
+        from newtonkrylov_tpu_torch.operator import JacobianOperator
+
+        x = u_f.float()
+        lin_sh = _wall_s(torch, lambda: JacobianOperator(F, x, p))
+        lin_1 = _wall_s(torch, lambda: JacobianOperator(bratu2d.residual_scaled, x, p))
+        log(f"[sharded flagship] one linearization: overlapped exchanged "
+            f"residual {lin_sh * 1e3:.1f} ms, residual_scaled {lin_1 * 1e3:.1f} ms "
+            f"(host wall, device drained)")
+
+        # (q2) Ψtc through the same seam, residuals sign-flipped
+        def F_ptc(ul, pp):
+            return -F(ul, pp)
+
+        def F_ptc_df(ud, pp):
+            return df32.neg(F_df(ud, pp))
+
+        _, info2, _ = solve("ptc", F_ptc, dict(
+            algo="cg", tol_rel=1e-8, krylov_dtype=torch.float32,
+            max_steps=25, delta0=float((N + 1) ** 2), M=dst,
+            residual_df=F_ptc_df), driver=nkt.pseudo_transient)
+
+        # (q3) Cheb-PCG with the sharded Chebyshev: no K4
+        from newtonkrylov_tpu_torch.kernels import stencil2d as k
+
+        k4 = k.LAUNCHES["chebyshev_apply"]
+        _, info3, _ = solve("cheb-pcg", F, dict(
+            kw, M=chebyshev(16, lo_frac=1 / 300, axis_names=axes),
+            precond_refresh="once", residual_df=F_df))
+        log(f"[sharded cheb-pcg] outer/inner {info3.stats.outer_iterations}/"
+            f"{info3.stats.inner_iterations} beside (cheb-pcg)'s K4 solve "
+            f"{info_c.stats.outer_iterations}/{info_c.stats.inner_iterations}; "
+            f"K4 launches {k.LAUNCHES['chebyshev_apply'] - k4}")
+        if k.LAUNCHES["chebyshev_apply"] != k4:
+            raise AssertionError("sharded cheb-pcg launched K4")
+
+        # (q4) integrate_scan_sharded: (m)'s march, cut to SHARDED_HEAT_STEPS
+        hp, _, hu0, g = _heat_setup(torch, HEAT_N)
+
+        def f_local(u_, pp, t=None):
+            from newtonkrylov_tpu_torch.ops.stencil import laplacian_2d
+
+            return pp.a * laplacian_2d(halo.exchange_2d(u_, axes), pp.dx, pp.dy)
+
+        def f_df_local(u_, pp, t=None):
+            up = df32.DF(halo.exchange_2d(u_.hi, axes),
+                         halo.exchange_2d(u_.lo, axes))
+            return heat2d.rhs_df_padded(up, u_, pp, t)
+
+        hkw = _heat_kwargs(fft_poisson(axis_names=axes, scope="global"))
+        hkw["residual_df"] = implicit_euler_df(f_df_local)
+        steps = SHARDED_HEAT_STEPS
+        D.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = halo.integrate_scan_sharded("euler", f_local, hu0, hp, HEAT_DT,
+                                        steps, mesh, spec, newton_kwargs=hkw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outers, inners = r.outer_iterations.tolist(), r.inner_iterations.tolist()
+        want = (heat_counts[0][:steps], heat_counts[1][:steps])
+        log(f"[sharded heat scan] n={HEAT_N} {steps} steps, global DST: "
+            f"n_failed={int(r.n_failed)} per-step outer {outers} inner {inners} "
+            f"(integrate_scan's first {steps}: {want[0]} / {want[1]}) "
+            f"wall={wall:.3f} s; collectives {dict(D.COLLECTIVES)}")
+        if int(r.n_failed) != 0 or (outers, inners) != want:
+            raise AssertionError("sharded heat scan: a step failed or the "
+                                 "counts differ from integrate_scan's")
+        _gate_decay(torch, "sharded heat scan", r.u, hu0, g, steps)
+        return info, info2, info3
+    finally:
+        D.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2000,7 +2203,7 @@ def main() -> int:
     from newtonkrylov_tpu_torch.problems import bratu2d
 
     t_start = time.perf_counter()
-    phase_environment(torch)
+    smi = phase_environment(torch)
     summary = phase_kernels(torch)
     summary.update(phase_chain_kernels(torch, nkt, bratu2d))
     summary["chain_call"] = phase_probe_kernels(torch)
@@ -2026,9 +2229,11 @@ def main() -> int:
                 raise AssertionError(f"{key} was never launched by the {path}")
         return out
 
+    flagship = {}  # its state, for path (q)
+
     def main_path():  # the first slice's: the aligned and flagship solves
         return (phase_aligned(torch, nkt, bratu2d, "run"),
-                phase_flagship(torch, nkt, bratu2d, "run"))
+                phase_flagship(torch, nkt, bratu2d, "run", keep=flagship))
 
     info_a, info_f = counted("main path", ("stencil_jvp", "bratu_residual"),
                              main_path)
@@ -2102,13 +2307,22 @@ def main() -> int:
         raise AssertionError("K4 launches on the heat march are not one per "
                              "Chebyshev preconditioner apply")
     launches["chebyshev_apply"] += k4_heat
-    counted("heat march dst integrate_scan", (),
-            lambda: phase_heat_dst_scan(torch, nkt, u_cheb))
+    heat_counts = counted("heat march dst integrate_scan", (),
+                          lambda: phase_heat_dst_scan(torch, nkt, u_cheb))
     del u_cheb
     counted("heat drivers and resume", (), lambda: phase_heat_drivers(torch, nkt))
     counted("small problems, card against cpu", (),
             lambda: phase_small_problems(torch, nkt))
     counted("implicit grad", (), lambda: phase_implicit_grad(torch, nkt, bratu2d))
+
+    # this slice's path (q): the sharded solvers on a world-1 NCCL group;
+    # they run no hand-written kernel (the sharded Chebyshev exchanges
+    # ghosts between polynomial steps, which K4 cannot)
+    t0 = time.perf_counter()
+    counted("sharded solvers (nccl, world 1)", (), lambda: phase_sharded(
+        torch, nkt, bratu2d, smi, info_f, flagship.pop("u"),
+        info_c, heat_counts))
+    log(f"[summary] path (q): {time.perf_counter() - t0:.1f} s")
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)

@@ -20,14 +20,19 @@ multigrid (:mod:`.mg`), two-grid, ADI, Jacobi, banded-direct and
 nested-Krylov preconditioners and the host-side banded LU and ILU(0) (host
 C++, built with the host compiler at first use); and the
 chained-step cost probe of :mod:`.kernels.probe` with its measuring script
-:mod:`.benchmarks.kernel_probe`.  Entry points that create tensors
-do so on the card unless the caller names a device.
+:mod:`.benchmarks.kernel_probe`; and distribution (:mod:`.halo`): one
+process per device over ``torch.distributed``, the halo exchange, the
+sharded drivers (:func:`.halo.newton_krylov_sharded`,
+:func:`.halo.integrate_scan_sharded`), :class:`ShardedSpace` and the
+sharded preconditioners, with the bring-up in :mod:`.utils.distributed`
+and a multi-device dry run in :mod:`.utils.dryrun`.  Entry points that
+create tensors do so on the card unless the caller names a device.
 
 This package imports ``torch`` and never ``jax``.
 """
 
-from . import (df32, fftprec, kernels, mg, precond, problems, solvers, spectral,
-               timestep)
+from . import (df32, fftprec, halo, kernels, mg, precond, problems, solvers,
+               spectral, timestep)
 from .continuation import pseudo_transient
 from .forcing import EisenstatWalker, Fixed, Forcing
 from .implicit import make_implicit_solver
@@ -41,7 +46,7 @@ from .operator import (
     materialize_dense,
 )
 from .solvers import KrylovResult, bicgstab, cg, cgls, fgmres, gmres
-from .spaces import EuclideanSpace, MaskedSpace, VectorSpace
+from .spaces import EuclideanSpace, MaskedSpace, ShardedSpace, VectorSpace
 from .timestep import integrate, integrate_scan
 
 __all__ = [
@@ -68,11 +73,13 @@ __all__ = [
     "VectorSpace",
     "EuclideanSpace",
     "MaskedSpace",
+    "ShardedSpace",
     "integrate",
     "integrate_scan",
     "make_implicit_solver",
     "df32",
     "fftprec",
+    "halo",
     "kernels",
     "mg",
     "precond",

@@ -1,9 +1,9 @@
 """Fast-Poisson (DST) preconditioner for 5-point-stencil Jacobians.
 
-Counterpart of ``newtonkrylov_tpu/fftprec.py`` with ``scope="local"``.  It
-diagonalizes the constant-coefficient part of ``A = o·S + d(x)·I`` exactly:
-with zero-Dirichlet BCs the 5-point Laplacian's eigenvectors are the 2-D
-discrete sine basis, so
+Counterpart of ``newtonkrylov_tpu/fftprec.py``.  It diagonalizes the
+constant-coefficient part of ``A = o·S + d(x)·I`` exactly: with
+zero-Dirichlet BCs the 5-point Laplacian's eigenvectors are the 2-D discrete
+sine basis, so
 
     M⁻¹ r = DST₂D⁻¹[ DST₂D(r) / λ ],
     λ_{ij} = o·(2cos(iπ/(n+1)) + 2cos(jπ/(n+1))) + d̄,
@@ -19,6 +19,13 @@ measured a preconditioner of that accuracy going from 9 to 49 inner
 iterations at 1024², so the matrix-product engine refuses to build while
 ``torch.backends.cuda.matmul.allow_tf32`` is set.  The single-pass
 ``"default"`` mode is not ported.
+
+Sharded (``axis_names=``, inside a solve of :mod:`~newtonkrylov_tpu_torch.halo`):
+``scope="local"`` solves each rank's block alone (block Jacobi, no
+communication per apply); ``scope="global"`` is the global inverse as four
+distributed sine-basis products per apply, each a local product and one
+``reduce_scatter`` over a mesh axis (:func:`_dist_dst_axis0`,
+:func:`_dist_dst_axis1`).
 """
 
 from __future__ import annotations
@@ -30,8 +37,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .mg import probe_5point
+from .mg import _probe_offsets, probe_5point
 from .utils import default_device
+from .utils import distributed as _dist
 
 __all__ = ["dst1", "idst1", "fft_poisson", "dst_poisson_solver", "sine_basis"]
 
@@ -149,6 +157,86 @@ def sine_basis(n: int, dtype=torch.float32, device=None):
                         device=device or default_device())
 
 
+def _dist_dst_axis0(r, S_cols, ax):
+    """DST-I along global axis 0 of a block-sharded array (local block
+    ``r``): the product of the basis' column block owned by this rank
+    (``S_cols``, (n, nl)) with the local rows, then a ``reduce_scatter``
+    over mesh axis ``ax`` that hands each rank its own row block of the
+    sum.  ``ax`` None (the axis unsharded): the plain local product with
+    the whole basis."""
+    partial = torch.matmul(S_cols, r)  # (n, ml)
+    if ax is None:
+        return partial
+    return _dist.reduce_scatter(partial, ax)
+
+
+def _dist_dst_axis1(r, S_rows, ax):
+    """DST-I along global axis 1; mirror of :func:`_dist_dst_axis0` with the
+    row block ``S_rows`` ((ml, m)).  The scatter runs on the transposed
+    partial product (contiguous, dim 0), and the block comes back
+    contiguous, so the next product sees the unsharded layout."""
+    partial = torch.matmul(r, S_rows)  # (nl, m)
+    if ax is None:
+        return partial
+    return _dist.reduce_scatter(partial.t().contiguous(), ax).t().contiguous()
+
+
+def _global_dst_solver(o, d, offsets, axis_names, shift, precision):
+    """The global (o·S + d̄·I)⁻¹ in a sharded solve: the arithmetic of
+    :func:`dst_poisson_solver`'s matrix-product engine, with each of its
+    four products distributed (a local product and one reduce-scatter; no
+    all-gather).  d̄ is the global mean diagonal (one all-reduce).
+    ``offsets`` is the block's global origin."""
+    if precision not in ("high", "highest"):
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported (only full-f32 'high'/"
+            "'highest'; ROADMAP.md Queue 3 hazard (a))")
+    ax0, ax1 = axis_names
+    nl, ml = d.shape
+    roff, coff = offsets
+    n = nl * (_dist.axis_size(ax0) if ax0 is not None else 1)
+    m = ml * (_dist.axis_size(ax1) if ax1 is not None else 1)
+    if max(n, m) > _MATMUL_MAX_N:
+        raise ValueError(
+            f'scope="global" inferred a global side of {max(n, m)} > '
+            f"{_MATMUL_MAX_N} (= _MATMUL_MAX_N): the distributed sine-basis "
+            "matmul engine is not valid at this size; use scope='local' or a "
+            "Chebyshev/two-grid preconditioner")
+    _check_matmul_precision()
+    names = tuple(a for a in axis_names if a is not None)
+    device = o.device
+    if shift == "mean":
+        dbar = _dist.all_reduce(torch.sum(d), names) / (n * m)
+    else:
+        dbar = -4.0 * o
+    f64 = dict(dtype=torch.float64, device=device)
+    ci = 2.0 * torch.cos(math.pi * torch.arange(1, n + 1, **f64) / (n + 1))
+    cj = 2.0 * torch.cos(math.pi * torch.arange(1, m + 1, **f64) / (m + 1))
+    ci, cj = ci[roff:roff + nl], cj[coff:coff + ml]
+    lam = o * (ci[:, None] + cj[None, :] - 4.0) + (dbar + 4.0 * o)
+    safe = torch.where(lam.abs() > 1e-30, lam, torch.ones_like(lam))
+    norm = (2.0 / (n + 1)) * (2.0 / (m + 1))
+    Sr0 = sine_basis(n, d.dtype, device)
+    Sc0 = Sr0 if m == n else sine_basis(m, d.dtype, device)
+    consts = {}  # per operand dtype: the owned basis blocks, 1/λ table, norm
+
+    def apply(r):
+        c = consts.get(r.dtype)
+        if c is None:
+            Sr, Sc = Sr0.to(r.dtype), Sc0.to(r.dtype)
+            c = consts[r.dtype] = (
+                Sr[:, roff:roff + nl].contiguous(),
+                Sc[coff:coff + ml, :].contiguous(),
+                safe.to(r.dtype), torch.tensor(norm, dtype=r.dtype, device=device))
+        S_cols, S_rows, lam_r, norm_r = c
+        rh = _dist_dst_axis1(_dist_dst_axis0(r, S_cols, ax0), S_rows, ax1)
+        rh = rh / lam_r
+        out = _dist_dst_axis1(_dist_dst_axis0(rh, S_cols, ax0), S_rows, ax1)
+        return out * norm_r
+
+    return apply
+
+
 def fft_poisson(shift: str = "mean", method: str = "auto",
                 precision: str = "highest", axis_names=None,
                 scope: str = "local") -> Callable:
@@ -157,8 +245,15 @@ def fft_poisson(shift: str = "mean", method: str = "auto",
     ``shift``: ``"mean"`` (default) absorbs the mean diagonal d̄ into the
     eigenvalues, ``"none"`` inverts the pure Laplacian part.  ``method``:
     ``"matmul"``, ``"fft"`` or ``"auto"`` (matmul up to ``_MATMUL_MAX_N``).
-    The sharded forms (``axis_names``, ``scope="global"``) are not ported
-    yet (ROADMAP.md Queue 1, item 20).
+
+    Sharded use: ``axis_names=(ax0, ax1)`` (a mesh axis or None per array
+    dimension) with ``scope`` ``"local"`` (the default: each rank inverts
+    its own block with zero-Dirichlet walls at the seams — additive
+    Schwarz, no communication per apply, an iteration-count penalty that
+    grows with the rank count) or ``"global"`` (the global inverse, the
+    single device's counts: four distributed sine-basis products per
+    apply; the matrix-product engine only).  The probe's colouring follows
+    the block's global origin either way.
 
     Returns ``factory(J) -> apply``; ``J`` is a
     :class:`~newtonkrylov_tpu_torch.operator.JacobianOperator` on an (n, m)
@@ -170,13 +265,18 @@ def fft_poisson(shift: str = "mean", method: str = "auto",
         raise ValueError(f"unknown precision {precision!r}")
     if scope not in ("local", "global"):
         raise ValueError(f"unknown scope {scope!r}")
-    if axis_names is not None or scope == "global":
-        raise NotImplementedError(
-            "sharded DST preconditioning is not ported yet "
-            "(ROADMAP.md Queue 1, item 20)")
+    if scope == "global":
+        if axis_names is None:
+            raise ValueError('scope="global" requires axis_names')
+        if method == "fft":
+            raise ValueError('scope="global" supports only the matmul engine')
 
     def factory(J):
-        o, d = probe_5point(J)
+        offsets = _probe_offsets(J, axis_names)
+        o, d = probe_5point(J, *offsets)
+        if scope == "global":
+            return _global_dst_solver(o, d, offsets, tuple(axis_names), shift,
+                                      precision)
         n, m = d.shape
         dbar = torch.mean(d) if shift == "mean" else -4.0 * o
         return dst_poisson_solver(o, dbar, (n, m), d.dtype, method, precision)

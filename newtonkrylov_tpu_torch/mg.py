@@ -1,7 +1,6 @@
 """Geometric multigrid and coefficient probing for 5-point-stencil Jacobians.
 
-Counterpart of ``newtonkrylov_tpu/mg.py`` without its sharded forms.  Two
-operator models:
+Counterpart of ``newtonkrylov_tpu/mg.py``.  Two operator models:
 
 * **constant off-diagonal** ``A u = o·S(u) + d(x)·u`` — ``S`` the sum of the
   four neighbours (zero-Dirichlet ghosts), ``o`` a scalar, ``d`` a field;
@@ -17,9 +16,14 @@ operator models:
   (:func:`~newtonkrylov_tpu_torch.precond._adi_build`).
 
 :func:`transfer_matmul` is the bilinear prolongation / full-weighting pair
-as dense matrix products, which ``precond.two_grid`` uses.  The sharded
-forms (``axis_names=``) are not ported yet (ROADMAP.md Queue 1, item 20)
-and raise ``NotImplementedError``.
+as dense matrix products, which ``precond.two_grid`` uses.
+
+Sharded forms (``axis_names=(ax0, ax1)``, one mesh axis or None per array
+dimension, inside a sharded solve of :mod:`~newtonkrylov_tpu_torch.halo`):
+each rank cycles its own block with zero-Dirichlet walls at the shard seams
+— block-MG and block-MG-ADI, additive Schwarz with no communication per
+apply.  Only the probe is mesh-aware: :func:`block_offsets` keeps its
+colouring globally consistent.
 """
 
 from __future__ import annotations
@@ -30,16 +34,29 @@ import torch
 
 from .ops.stencil import pad_dirichlet
 from .utils import default_device
+from .utils import distributed as _dist
 
 __all__ = ["multigrid2d", "multigrid2d_general", "vcycle", "probe_5point",
-           "probe_5point_general", "transfer_matmul"]
+           "probe_5point_general", "transfer_matmul", "block_offsets"]
 
 
-def _no_sharding(name: str, axis_names) -> None:
-    if axis_names is not None:
-        raise NotImplementedError(
-            f"sharded {name} (axis_names=) is not ported yet "
-            "(ROADMAP.md Queue 1, item 20)")
+def block_offsets(shape_local, ax0, ax1):
+    """Global (row, col) origin of this rank's block: ``axis_index ×
+    local side`` per sharded dimension, 0 for an unsharded one.  Every
+    probing factory threads these into its colouring so the colours stay
+    globally consistent across the shard seams."""
+    nl, ml = shape_local
+    roff = _dist.axis_index(ax0) * nl if ax0 is not None else 0
+    coff = _dist.axis_index(ax1) * ml if ax1 is not None else 0
+    return roff, coff
+
+
+def _probe_offsets(J, axis_names):
+    """The probe's offsets for a factory: the block's origin when sharded."""
+    if axis_names is None:
+        return 0, 0
+    ax0, ax1 = axis_names
+    return block_offsets(J.u.shape, ax0, ax1)
 
 
 def _neighbor_sum(u):
@@ -263,12 +280,15 @@ def multigrid2d(
     Invoked at every Newton iteration (or once, ``precond_refresh="once"``)
     so the hierarchy tracks the linearization point.  Symmetric cycles: use
     with ``algo="cg"`` or FGMRES.  The hierarchy is ``n_levels`` deep, at
-    most what :func:`_levels_cap` allows.
+    most what :func:`_levels_cap` allows on the block.
+
+    ``axis_names=(ax0, ax1)`` runs it as block-MG in a sharded solve: each
+    rank V-cycles its own block, zero communication per apply, with the
+    Schwarz iteration-count penalty the tests record.
     """
-    _no_sharding("multigrid2d", axis_names)
 
     def factory(J):
-        o, d = probe_5point(J)
+        o, d = probe_5point(J, *_probe_offsets(J, axis_names))
         cap = _levels_cap(d.shape, min_coarse)
         L = cap if n_levels is None else min(n_levels, cap)
         levels = _build_levels(o, d, L)
@@ -387,17 +407,18 @@ def multigrid2d_general(
     CPU state, PCR on a CUDA state).  ``bounds=(α, β)`` overrides the
     Wachspress interval only for a single-level hierarchy (L = 1).  The
     apply is nonsymmetric: use under ``algo="gmres"``/FGMRES.
+    ``axis_names=(ax0, ax1)`` runs it as block-MG-ADI in a sharded solve
+    (each rank its own block, zero communication per apply).
     """
     if nu < 1 or smoother_sweeps < 1 or coarse_sweeps < 1 or cycles < 1:
         raise ValueError("nu, smoother_sweeps, coarse_sweeps, cycles must be >= 1")
-    _no_sharding("multigrid2d_general", axis_names)
 
     from .precond import _adi_build, _check_adi_engine
 
     _check_adi_engine(engine)
 
     def factory(J):
-        coeffs = probe_5point_general(J)
+        coeffs = probe_5point_general(J, *_probe_offsets(J, axis_names))
         cap = _levels_cap(coeffs[0].shape, min_coarse)
         L = cap if n_levels is None else min(n_levels, cap)
 

@@ -24,8 +24,10 @@ returns the apply ``r ↦ M⁻¹ r``.  Ported:
   (convection-dominated) operators, on the tridiagonal solvers
   :func:`thomas_solve` and :func:`pcr_solve`.
 
-Not ported yet: the sharded forms ``axis_names=`` (ROADMAP.md Queue 1,
-item 20).
+:func:`chebyshev` and :func:`adi` take ``axis_names=`` for a sharded solve
+(:mod:`~newtonkrylov_tpu_torch.halo`): the global-operator Chebyshev
+polynomial, one ghost exchange per step, and block-ADI, no communication
+per apply.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 from . import solvers
 from .kernels import stencil2d as K
 from .mg import _apply as _stencil_apply
-from .mg import _no_sharding, probe_5point, probe_5point_general
+from .mg import _probe_offsets, probe_5point, probe_5point_general
 from .operator import (_flatten, _unflatten_like, materialize_banded,
                        materialize_csr, materialize_dense)
 from .tree import tree_size
@@ -166,17 +168,29 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
     aligned layout); any other state raises ``ValueError`` under
     ``"pallas"``, and under ``"auto"`` on the card.
 
-    ``axis_names`` is not ported yet and raises ``NotImplementedError``, as
-    does ``bc`` set to anything but ``"dirichlet"``: it acts only on the
+    **Sharded** (``axis_names=(ax0, ax1)``, a mesh axis or None per array
+    dimension): the factory preconditions with the *global* operator — each
+    polynomial step exchanges the ghosts of its vector (``bc``: Dirichlet or
+    periodic walls) and applies the plain stencil, so the polynomial, and
+    the preconditioned iteration counts, are the single device's.  An apply
+    is ``degree`` exchanges and no reduction; it runs no hand-written
+    kernel (K4 keeps the whole recurrence on one block, with no exchange
+    between steps).  The probe's colouring follows the block's global
+    origin, the diagonal's extremes are all-reduced (min, max) over the
+    mesh, and a Lanczos interval starts from the single device's start
+    vector, rebuilt from the global linear index.  ``bc`` acts only on the
     sharded form.
     """
     if engine not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown engine {engine!r}")
-    _no_sharding("Chebyshev preconditioning", axis_names)
+    if bc not in ("dirichlet", "periodic"):
+        raise ValueError(f"unknown bc {bc!r}")
+    if axis_names is not None:
+        return _sharded_chebyshev(degree, bounds, lo_frac, tuple(axis_names),
+                                  bc, lanczos_k)
     if bc != "dirichlet":
-        raise NotImplementedError(
-            "chebyshev(bc=) acts only on the sharded form, which is not "
-            "ported yet (ROADMAP.md Queue 1, item 20)")
+        raise ValueError("chebyshev(bc=) acts only on the sharded form "
+                         "(axis_names=); the single-block stencil is Dirichlet")
 
     def factory(J):
         o, d = probe_5point(J)
@@ -184,6 +198,42 @@ def chebyshev(degree: int = 16, *, bounds=None, lo_frac: float = 1.0 / 30.0,
         theta, delta = _cheb_bounds(o, torch.min(d), torch.max(d), b, lo_frac,
                                     d.dtype)
         return _cheb_engine_apply(o, d, theta, delta, degree, engine)
+
+    return factory
+
+
+def _sharded_chebyshev(degree, bounds, lo_frac, axis_names, bc,
+                       lanczos_k) -> Callable:
+    """The factory of :func:`chebyshev` inside a sharded solve."""
+    from .halo import exchange_2d
+    from .spaces import ShardedSpace
+    from .utils import distributed as dist
+
+    ax0, ax1 = axis_names
+    names = tuple(a for a in axis_names if a is not None)
+
+    def factory(J):
+        nl, ml = J.u.shape
+        roff, coff = _probe_offsets(J, axis_names)
+        o, d = probe_5point(J, roff, coff)
+        dmin = dist.all_reduce(torch.min(d), names, "min")
+        dmax = dist.all_reduce(torch.max(d), names, "max")
+        # the single device's Lanczos start, cos(global linear index)
+        msize = (dist.axis_size(ax1) if ax1 is not None else 1) * ml
+        gi = roff + torch.arange(nl, device=d.device)[:, None]
+        gj = coff + torch.arange(ml, device=d.device)[None, :]
+        v0 = torch.cos((gi * msize + gj).to(J.u.dtype))
+        b = _resolve_cheb_bounds(
+            J, bounds, lanczos_k,
+            space=ShardedSpace(axis_names=names) if names else None, v0=v0)
+        theta, delta = _cheb_bounds(o, dmin, dmax, b, lo_frac, d.dtype)
+
+        def matvec(x):
+            xp = exchange_2d(x, axis_names, bc)
+            S = xp[2:, 1:-1] + xp[:-2, 1:-1] + xp[1:-1, 2:] + xp[1:-1, :-2]
+            return o * S + d * x
+
+        return _cheb_recurrence(matvec, theta, delta, degree)
 
     return factory
 
@@ -725,13 +775,18 @@ def adi(sweeps: int = 4, *, bounds=None, axis_names=None,
     parameter sequence the map r ↦ z is linear but not symmetric: use it
     under GMRES.  The operator is sign-normalized internally, so positive
     and negative definite stencils both work.
+
+    ``axis_names=(ax0, ax1)`` runs it as block-ADI in a sharded solve: each
+    rank line-relaxes its own block with zero-Dirichlet walls at the shard
+    seams, no communication per apply (additive Schwarz; only the probe's
+    colouring follows the block's global origin).
     """
     if sweeps < 1:
         raise ValueError("adi needs sweeps >= 1")
     _check_adi_engine(engine)
-    _no_sharding("ADI preconditioning", axis_names)
 
     def factory(J):
-        return _adi_build(probe_5point_general(J), sweeps, bounds, engine)
+        coeffs = probe_5point_general(J, *_probe_offsets(J, axis_names))
+        return _adi_build(coeffs, sweeps, bounds, engine)
 
     return factory

@@ -7,21 +7,23 @@ tensor ops.
 * :class:`EuclideanSpace` — plain reductions over every entry.
 * :class:`MaskedSpace` — reductions weighted by a 0/1 interior mask, so the
   ghost cells of a ghost-carrying layout never contribute.
-
-``ShardedSpace`` (the all-reduce point of a distributed solve) is not ported
-yet; ROADMAP.md Queue 1 lists it.
+* :class:`ShardedSpace` — the local (masked or plain) reduction of a rank's
+  block followed by one ``all_reduce`` over the mesh axes: the point where a
+  sharded solve's ranks agree (:mod:`~newtonkrylov_tpu_torch.halo`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Sequence
 
 import torch
 
 from .tree import tree_dtype, tree_map, tree_norm, tree_project_rows, tree_vdot
+from .utils import distributed as _dist
 
-__all__ = ["VectorSpace", "EuclideanSpace", "MaskedSpace"]
+__all__ = ["VectorSpace", "EuclideanSpace", "MaskedSpace", "ShardedSpace"]
 
 
 class VectorSpace:
@@ -101,3 +103,52 @@ class MaskedSpace(VectorSpace):
 
     def mask_tree(self, x):
         return tree_map(torch.mul, self._mask_as(tree_dtype(x)), x)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSpace(VectorSpace):
+    """Masked or plain space on a rank's block + ``all_reduce`` over mesh
+    axes: the distributed reduction point.
+
+    ``axis_names`` are the mesh axes the state is sharded over; every scalar
+    reduction is completed by one all-reduce over their group (over all
+    axes of a mesh, the whole group: one collective, not one per axis).
+    ``dot_stack`` (and ``dot2``) stack their local dots and complete them in
+    one all-reduce, as the JAX package's single ``psum``.  ``mask`` is None
+    (the blocks hold only interior) or the block's interior mask.  ``mesh``
+    defaults to the current mesh (``halo.make_mesh``).
+    """
+
+    axis_names: Sequence[str]
+    mask: Any = None
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    @functools.cached_property
+    def _local(self):
+        return (MaskedSpace(self.mask) if self.mask is not None
+                else EuclideanSpace())
+
+    def _sum(self, x):
+        return _dist.all_reduce(x, tuple(self.axis_names), "sum", self.mesh)
+
+    def dot(self, x, y):
+        return self._sum(self._local.dot(x, y))
+
+    def project_rows(self, V, w):
+        return self._sum(self._local.project_rows(V, w))
+
+    def dot_stack(self, pairs):
+        loc = self._local
+        return self._sum(torch.stack([loc.dot(x, y) for x, y in pairs]))
+
+    def mask_tree(self, x):
+        return self._local.mask_tree(x)
+
+    def reduce_rows(self, h):
+        return self._sum(h)
+
+    def size_multiplier(self):
+        mult = 1
+        for ax in self.axis_names:
+            mult *= _dist.axis_size(ax, self.mesh)
+        return mult

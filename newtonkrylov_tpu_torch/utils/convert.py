@@ -19,7 +19,8 @@ from .checkpointing import MarchCheckpoint
 
 __all__ = ["state", "df_pair", "params", "heat2d_params", "heat1d_params",
            "spring_params", "heat1d_dg_params", "step_params",
-           "march_checkpoint", "masked_space", "to_numpy"]
+           "march_checkpoint", "masked_space", "to_numpy", "spec", "spec_tree",
+           "local_block", "local_tree"]
 
 
 def state(a, *, device, dtype=None) -> torch.Tensor:
@@ -90,3 +91,52 @@ def to_numpy(x):
     if isinstance(x, DF):
         return (to_numpy(x.hi), to_numpy(x.lo))
     return x.detach().cpu().numpy()
+
+
+def spec(s):
+    """A ``jax.sharding.PartitionSpec`` (or any sequence of mesh-axis names
+    and None) as the port's :class:`~newtonkrylov_tpu_torch.halo.PartitionSpec`.
+    An entry naming several mesh axes has no counterpart and raises."""
+    from ..halo import PartitionSpec
+
+    axes = tuple(s)
+    for ax in axes:
+        if ax is not None and not isinstance(ax, str):
+            raise NotImplementedError(
+                f"spec entry {ax!r}: the port shards a dimension over one "
+                "mesh axis")
+    return PartitionSpec(*axes)
+
+
+def _is_spec(s) -> bool:
+    # a JAX PartitionSpec, told apart by its type's name (JAX is not imported)
+    return type(s).__name__ == "PartitionSpec"
+
+
+def spec_tree(p_spec):
+    """A ``p_spec`` tree (named tuples, tuples, dicts; PartitionSpec or None
+    leaves) with every PartitionSpec converted by :func:`spec`."""
+    if p_spec is None or _is_spec(p_spec):
+        return None if p_spec is None else spec(p_spec)
+    if isinstance(p_spec, dict):
+        return {k: spec_tree(v) for k, v in p_spec.items()}
+    if isinstance(p_spec, tuple):
+        vals = [spec_tree(v) for v in p_spec]
+        return type(p_spec)(*vals) if hasattr(p_spec, "_fields") else tuple(vals)
+    raise TypeError(f"p_spec leaf {p_spec!r}")
+
+
+def local_block(a, mesh, s, *, dtype=None) -> torch.Tensor:
+    """This rank's block of the global array ``a`` (numpy) under the JAX
+    spec ``s``, on the mesh's device."""
+    from ..halo import shard_array
+
+    return shard_array(state(a, device="cpu", dtype=dtype), mesh, spec(s))
+
+
+def local_tree(p, mesh, p_spec):
+    """The port's parameters ``p`` with the fields ``p_spec`` (a JAX-spec
+    tree congruent with ``p``) shards replaced by this rank's blocks."""
+    from ..halo import shard_tree
+
+    return shard_tree(p, mesh, spec_tree(p_spec))

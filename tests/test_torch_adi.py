@@ -216,8 +216,13 @@ def test_adi_rejects_bad_and_unported_options():
         tp.adi(0)
     with pytest.raises(ValueError, match="engine"):
         tp.adi(engine="cyclic")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tp.adi(axis_names=("i", "j"))
+    # the sharded form needs a mesh to resolve its axis names against
+    n = 8
+    J = nkt.JacobianOperator(tc.residual_scaled,
+                             tc.initial_guess(n, F32, device="cpu"),
+                             tc.default_config(n, c=25.0, dtype=F32, device="cpu"))
+    with pytest.raises(RuntimeError, match="no mesh"):
+        tp.adi(axis_names=("i", "j"))(J)
     with pytest.raises(ValueError, match="axis"):
         tp.pcr_solve(*map(_t, _tridiag((4, 2), 0)), axis=2)
 

@@ -135,17 +135,17 @@ def test_chebyshev_rejects_unported_and_bad_options():
     _, Jt = _jacobians(8)
     with pytest.raises(ValueError, match="engine"):
         tp.chebyshev(engine="mosaic")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tp.chebyshev(axis_names=("i", "j"))
+    with pytest.raises(RuntimeError, match="no mesh"):
+        tp.chebyshev(axis_names=("i", "j"))(Jt)
     with pytest.raises(ValueError, match="bounds"):
         tp.chebyshev(bounds="gershgorin")(Jt)
 
 
 @pytest.mark.parametrize("option", [{"bc": "periodic"}, {"bc": "neumann"}])
 def test_chebyshev_rejects_options_of_unported_paths(option):
-    """``bc`` acts only on the sharded form; set away from its default it
-    raises, not passes silently."""
-    with pytest.raises(NotImplementedError, match="item 20"):
+    """``bc`` acts only on the sharded form; set away from its default on
+    the single-block form it raises, not passes silently."""
+    with pytest.raises(ValueError, match="bc"):
         tp.chebyshev(**option)
 
 

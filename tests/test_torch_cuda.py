@@ -725,3 +725,49 @@ def test_implicit_grad_on_card(cuda_device):
     with torch.no_grad():
         fd = float(solve(u0, lam0 + eps).sum() - solve(u0, lam0 - eps).sum()) / (2 * eps)
     assert abs(float(grad) - fd) <= 1e-5 * abs(fd)
+
+
+def test_sharded_flagship_world1_nccl(cuda_device, tmp_path):
+    """The sharded solver on a world-1 NCCL group (one card): the flagship
+    configuration at 64² (f32 CG, df32 acceptance with the words exchanged
+    apart, the global DST built once) through ``newton_krylov_sharded``
+    takes the unsharded flagship's counts and reaches its state within
+    1e-12; every reduction is an NCCL all-reduce and every DST product a
+    reduce-scatter, and no point-to-point message is sent (axes of size 1).
+    """
+    from newtonkrylov_tpu_torch import halo
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils.dryrun import bratu_padded
+
+    n = 64
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device).double()
+    kw = dict(algo="cg", tol_rel=1e-8, krylov_dtype=torch.float32, max_niter=20,
+              precond_refresh="once")
+    u_ref, info_ref = nkt.newton_krylov_jit(
+        tb.residual_scaled, u0, p, residual_df=tb.residual_scaled_df,
+        M=fft_poisson(precision="high"), **kw)
+    assert D.initialize("file://" + str(tmp_path / "store"), 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = halo.make_mesh((1, 1), ("i", "j"), device_type="cuda")
+        D.reset_collective_counts()
+        u, info = halo.newton_krylov_sharded(
+            halo.sharded_residual_2d(bratu_padded, ("i", "j")), u0, p, mesh,
+            halo.P("i", "j"),
+            newton_kwargs=dict(
+                kw, M=fft_poisson(axis_names=("i", "j"), scope="global",
+                                  precision="high"),
+                residual_df=halo.sharded_residual_df_2d(
+                    tb.residual_scaled_df_padded, ("i", "j"))))
+        counts = dict(D.COLLECTIVES)
+    finally:
+        D.shutdown()
+    assert bool(info.solved) and bool(info_ref.solved)
+    assert (info.stats.outer_iterations, info.stats.inner_iterations) == (
+        info_ref.stats.outer_iterations, info_ref.stats.inner_iterations)
+    assert float((u - u_ref).abs().max()) <= 1e-12
+    # one DST apply to start each outer's CG and one an inner iteration
+    applies = info.stats.inner_iterations + info.stats.outer_iterations
+    assert counts["reduce_scatter"] == 4 * applies
+    assert counts["all_reduce"] > 0 and counts["p2p"] == 0

@@ -126,7 +126,11 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 3"):
         tf.dst_poisson_solver(torch.tensor(-1.0), torch.tensor(-4.0), (8, 8),
                               torch.float32, precision="default")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tf.fft_poisson(axis_names=("i", "j"))
+    # the sharded forms need a mesh; the global one needs axis names and
+    # the matrix-product engine
+    with pytest.raises(ValueError, match="requires axis_names"):
+        tf.fft_poisson(scope="global")
+    with pytest.raises(ValueError, match="only the matmul engine"):
+        tf.fft_poisson(axis_names=("i", "j"), scope="global", method="fft")
     with pytest.raises(ValueError, match="unknown method"):
         tf.fft_poisson(method="dct")
