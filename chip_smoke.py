@@ -114,9 +114,28 @@ Phases (each raises on failure; the script exits non-zero after any):
     stencil per polynomial step: no K4), its counts beside (cheb-pcg)'s;
     (q4) ``integrate_scan_sharded``, the heat march of (m) for 5 steps with
     the global DST, gated on (m)'s per-step counts and the decay g⁵.  Each
-    prints its wall and the collectives the port's wrappers issued.
+    prints its wall and the collectives the port's wrappers issued.  Then
+    (q5) the exchange's transpose at 2048² f64: J.rmv of the exchanged
+    residual against the unsharded J.rmv (bit for bit in the plain
+    exchange form, 1e-12 relative in the overlapped one) and the dot test;
+    (r4) the weak-scaling harness (``utils/scaling.py``) at local_n = 2048
+    on a 1-device row mesh and a 1×1 mesh, one exchange per mesh axis and
+    matvec;
+17. path (r), run just after the main path: (r1) the flagship
+    configuration at 2048² exported whole (``utils/serving.py``), saved,
+    loaded and called — solved, the f64 true residual, the live
+    flagship's counts and its state bit for bit (or within 1e-12·max|u|,
+    which of the two is printed), with the export time, the artifact's
+    size and the loaded wall beside the live one; (r2) the aligned solve
+    at 2048² the same way, its exported graph holding K1 and K2 as ops,
+    the loaded program's K1/K2 launches counted on their own (K1 once a
+    CG matvec, K2 once a residual: the live solve's less its
+    linearizations' tracing); (r3) ``time_chain`` on K1 at 2048² f32
+    beside K1's device time, the ``PhaseTimer`` summary and
+    ``solve_report`` of (r1), and a ``trace()`` of one loaded flagship
+    solve holding an ``annotate`` range.
 
-Launch counts are zeroed just before each of phases 6–13, 15 and 16 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–17 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
 the two Cheb-PCG paths at 2048², the Ψtc path and the heat march).  The
@@ -593,11 +612,13 @@ def _aligned_solve(torch, nkt, bratu2d, n, device, krylov_dtype):
     return u, info, wall, k.aligned_interior(u, n), k.aligned_interior(u0a, n), p
 
 
-def phase_aligned(torch, nkt, bratu2d, pass_name):
+def phase_aligned(torch, nkt, bratu2d, pass_name, keep=None):
     from newtonkrylov_tpu_torch.kernels import stencil2d as k
 
     u, info, wall, ui, u0i, p = _aligned_solve(
         torch, nkt, bratu2d, N, "cuda", torch.float32)
+    if keep is not None:  # the caller keeps the state and the wall
+        keep["u"], keep["wall"] = u, wall
     fu, f0 = _true_residual(torch, bratu2d, ui, u0i, p)
     log(f"[aligned {pass_name}] n={N} f64 state, f32 Krylov, MaskedSpace: "
         f"solved={bool(info.solved)} outer={info.stats.outer_iterations} "
@@ -663,8 +684,8 @@ def _df32_solve(torch, nkt, bratu2d, n, M, tag, algo="cg", refresh="once",
         raise AssertionError(f"{tag}: solve returned a malformed state")
     if not fu <= 1e-8 * f0 + 1e-12:
         raise AssertionError(f"{tag}: f64 true residual above 1e-8·‖F₀‖")
-    if keep is not None:  # the caller keeps the state
-        keep["u"] = u
+    if keep is not None:  # the caller keeps the state and the wall
+        keep["u"], keep["wall"] = u, wall
     return info
 
 
@@ -2183,10 +2204,274 @@ def phase_sharded(torch, nkt, bratu2d, smi, info_f, u_f, info_c, heat_counts):
             raise AssertionError("sharded heat scan: a step failed or the "
                                  "counts differ from integrate_scan's")
         _gate_decay(torch, "sharded heat scan", r.u, hu0, g, steps)
+        phase_transpose(torch, bratu2d, mesh, u_f)  # (q5)
+        phase_scaling(torch)  # (r4)
         return info, info2, info3
     finally:
         D.shutdown()
         shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_transpose(torch, bratu2d, mesh, u_f):
+    """(q5) The ghost exchange's transpose on the world-1 group at 2048²
+    f64: Jᵀw of the exchanged residual against the unsharded
+    ``residual_scaled``'s, bit for bit in the plain exchange form
+    (``overlap=False``: the same graph as the unsharded residual), within
+    1e-12·max|Jᵀw| in the overlapped form (its edge strips sum the
+    cotangents in another order), and the dot test
+    |⟨Jv, w⟩ − ⟨v, Jᵀw⟩| ≤ 1e-12·‖Jv‖‖w‖ for both."""
+    from newtonkrylov_tpu_torch import halo
+    from newtonkrylov_tpu_torch.operator import JacobianOperator
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils.dryrun import bratu_padded
+
+    p = bratu2d.default_config(N, lam=LAM)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    v, w = (torch.randn((N, N), generator=gen, device="cuda",
+                        dtype=torch.float64) for _ in range(2))
+    ref = JacobianOperator(bratu2d.residual_scaled, u_f, p).rmv(w)
+    for overlap in (False, True):
+        F = halo.sharded_residual_2d(bratu_padded, ("i", "j"), "dirichlet",
+                                     overlap=overlap)
+        D.reset_collective_counts()
+        with D.use_mesh(mesh):
+            J = JacobianOperator(F, halo.shard_array(u_f, mesh, halo.P("i", "j")), p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            jtw = J.rmv(w)
+            torch.cuda.synchronize()
+            t_rmv = time.perf_counter() - t0
+            jv = J.mv(v)
+        diff = float((jtw - ref).abs().max())
+        bitwise = _bitwise_equal(torch, jtw, ref)
+        gap = abs(float((jv * w).sum() - (v * jtw).sum()))
+        bound = 1e-12 * float(jv.norm() * w.norm())
+        form = "overlapped" if overlap else "plain exchange"
+        log(f"[transpose] n={N} f64 world 1, {form}: J.rmv against the "
+            f"unsharded J.rmv {'bit for bit' if bitwise else f'max|Δ| {diff:.3e}'}"
+            f" (max|Jᵀw| {float(ref.abs().max()):.3e}); dot test |<Jv,w> - "
+            f"<v,Jᵀw>| {gap:.3e} (limit {bound:.3e}); first J.rmv "
+            f"{t_rmv * 1e3:.1f} ms with its VJP trace; collectives "
+            f"{dict(D.COLLECTIVES)}")
+        if not (bitwise if not overlap
+                else diff <= 1e-12 * float(ref.abs().max())):
+            raise AssertionError(f"transpose ({form}): J.rmv differs from the "
+                                 "unsharded J.rmv")
+        if not gap <= bound:
+            raise AssertionError(f"transpose ({form}): the dot test fails")
+
+
+def phase_scaling(torch):
+    """(r4) The weak-scaling harness on the world-1 NCCL group at local_n =
+    2048 (f32, chains of 200 and 20, best of 3): a 1-device row mesh and a
+    1×1 mesh; one exchange per mesh axis and matvec, none sent."""
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils import scaling
+
+    chain, repeats = 200, 3
+    matvecs = (1 + repeats) * (chain // 10 + chain)
+    D.reset_collective_counts()
+    t0 = time.perf_counter()
+    pts = scaling.weak_scaling_matvec(local_n=N, device_counts=[1],
+                                      chain=chain, repeats=repeats)
+    c1, t1 = dict(D.COLLECTIVES), time.perf_counter() - t0
+    D.reset_collective_counts()
+    t0 = time.perf_counter()
+    pt2 = scaling.weak_scaling_matvec_2d(N, (1, 1), chain=chain,
+                                         repeats=repeats)
+    c2, t2 = dict(D.COLLECTIVES), time.perf_counter() - t0
+    for pt, c, t, axes in ((pts[0], c1, t1, 1), (pt2, c2, t2, 2)):
+        log(f"[scaling] {pt.n_devices} device(s), global {pt.global_n} rows x "
+            f"{N} cols: {pt.matvecs_per_s:.1f} "
+            f"matvecs/s ({1e6 / pt.matvecs_per_s:.2f} us a matvec), efficiency "
+            f"{pt.efficiency}; {c['exchange']} exchanges for {matvecs} "
+            f"matvecs ({axes} a matvec), {c['p2p']} messages; {t:.1f} s")
+        if c["exchange"] != axes * matvecs or c["p2p"] != 0:
+            raise AssertionError("scaling: not one exchange per mesh axis and "
+                                 "matvec")
+        if not pt.matvecs_per_s > 0:
+            raise AssertionError("scaling: no rate")
+    if pts[0].efficiency != 1.0:
+        raise AssertionError("scaling: the first point's efficiency is not 1")
+
+
+def _roundtrip(torch, fn, args, tag, timer, workdir):
+    """``fn`` exported, saved under ``workdir`` and loaded, each phase timed
+    by ``timer``; returns (loaded, bytes on disk, the exported graph's op
+    targets)."""
+    from newtonkrylov_tpu_torch.utils import serving
+
+    with timer(f"{tag}: export"):
+        ep = serving.export_solver(fn, args)
+    with timer(f"{tag}: save"):
+        path = serving.save_exported(ep, os.path.join(workdir, f"{tag}.pt2"))
+    with timer(f"{tag}: load"):
+        loaded = serving.load_exported(path)
+    targets = {str(node.target) for m in ep.graph_module.modules()
+               if isinstance(m, torch.fx.GraphModule) for node in m.graph.nodes}
+    return loaded, os.path.getsize(path), targets
+
+
+def _state_agreement(torch, tag, u, u_live):
+    """Log and gate the loaded program's state against the live one: bit
+    for bit, or within 1e-12·max|u| where the exported graph decomposes an
+    op."""
+    if _bitwise_equal(torch, u, u_live):
+        log(f"[{tag}] state bit for bit equal to the live solve's")
+        return
+    diff, scale = float((u - u_live).abs().max()), float(u_live.abs().max())
+    log(f"[{tag}] state within {diff:.3e} of the live solve's (limit "
+        f"1e-12·max|u| = {1e-12 * scale:.3e})")
+    if not diff <= 1e-12 * scale:
+        raise AssertionError(f"{tag}: the loaded program's state differs")
+
+
+def phase_export_flagship(torch, nkt, bratu2d, info_f, live, timer, workdir):
+    """(r1) ``entry()``'s configuration at 2048² (f32 CG, df32 acceptance,
+    ``fft_poisson(precision="high")`` built once, tol_rel 1e-8) exported
+    whole, saved, loaded and called: solved, the f64 true residual, the
+    live flagship's counts and state.  Returns (loaded, u0, info of the
+    loaded call)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    p = bratu2d.default_config(N, lam=LAM)
+    u0 = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda").to(
+        torch.float64)
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            bratu2d.residual_scaled, u, p, algo="cg", tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=bratu2d.residual_scaled_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return (u, info.stats.outer_iterations, info.stats.inner_iterations,
+                info.solved, info.stats.n_res, info.floor_limited)
+
+    loaded, size, _ = _roundtrip(torch, fn, (u0,), "flagship", timer, workdir)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer("flagship: loaded call"):
+            u, outer, inner, solved, n_res, fl = loaded.call(u0)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    info = nkt.NewtonInfo(solved=solved, stats=nkt.Stats(int(outer), int(inner), n_res),
+                          t=walls[-1], floor_limited=fl)
+    fu, f0 = _true_residual(torch, bratu2d, u, u0, p)
+    counts = (int(outer), int(inner))
+    ref = (info_f.stats.outer_iterations, info_f.stats.inner_iterations)
+    log(f"[export flagship] n={N}: export {timer.totals['flagship: export']:.2f} s, "
+        f"artifact {size / 2**20:.1f} MiB, load {timer.totals['flagship: load']:.2f} s; "
+        f"loaded solved={bool(solved)} outer/inner {counts[0]}/{counts[1]} (live "
+        f"{ref[0]}/{ref[1]}); wall {walls[0]:.3f} s first call, {walls[1]:.3f} s "
+        f"second, beside the live flagship's {live['wall']:.3f} s; true |F|="
+        f"{fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})")
+    if not bool(solved):
+        raise AssertionError("export flagship: the loaded solve did not converge")
+    if not fu <= 1e-8 * f0 + 1e-12:
+        raise AssertionError("export flagship: f64 true residual above 1e-8·‖F₀‖")
+    if counts != ref:
+        raise AssertionError("export flagship: counts differ from the live flagship's")
+    _state_agreement(torch, "export flagship", u, live["u"])
+    return loaded, u0, info
+
+
+def phase_export_aligned(torch, nkt, bratu2d, info_a, live, timer, workdir):
+    """(r2) The aligned solve at 2048² (f64 state, f32 CG, K1 for every
+    matvec, K2 for every residual) exported, saved and loaded; returns the
+    loaded program and u₀.  The caller counts the loaded call's launches."""
+    u0, p, space = bratu2d.aligned_setup(N, lam=LAM, dtype=torch.float64,
+                                         device="cuda")
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            bratu2d.residual_scaled_aligned, u, p, algo="cg", space=space,
+            krylov_dtype=torch.float32, tol_rel=1e-8, max_niter=20)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    loaded, size, targets = _roundtrip(torch, fn, (u0,), "aligned", timer, workdir)
+    ops = [t for t in ("newtonkrylov_tpu_torch.stencil_jvp.default",
+                       "newtonkrylov_tpu_torch.bratu_residual.default")
+           if t in targets]
+    log(f"[export aligned] n={N}: export {timer.totals['aligned: export']:.2f} s, "
+        f"artifact {size / 2**20:.1f} MiB; the graph calls {ops}")
+    if len(ops) != 2:
+        raise AssertionError("export aligned: the exported graph lost K1 or K2")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer("aligned: loaded call"):
+            out = loaded.call(u0)
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check(out, wall):
+        u, outer, inner, solved = out
+        counts = (int(outer), int(inner))
+        ref = (info_a.stats.outer_iterations, info_a.stats.inner_iterations)
+        log(f"[export aligned] loaded solved={bool(solved)} outer/inner "
+            f"{counts[0]}/{counts[1]} (live {ref[0]}/{ref[1]}); wall {wall:.3f} s "
+            f"beside the live aligned solve's {live['wall']:.3f} s")
+        if not bool(solved) or counts != ref:
+            raise AssertionError("export aligned: unsolved, or counts differ "
+                                 "from the live solve's")
+        _state_agreement(torch, "export aligned", u, live["u"])
+
+    return run, check
+
+
+def phase_time_chain(torch, bratu2d, k1_ms):
+    """(r3) ``bench.py``'s ``r_pal`` lane on the port: ``time_chain`` on K1
+    at 2048² f32 (w = Δx²λeᵘ at the sin-bump u₀), beside phase 2's device
+    time per K1 call."""
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
+    from newtonkrylov_tpu_torch.utils.profiling import time_chain
+
+    p = bratu2d.default_config(N, lam=LAM)
+    u = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda")
+    v = k.aligned_wrap(u)
+    w = k.aligned_wrap((p.dx * p.dx * p.lam) * torch.exp(u))
+    t0 = time.perf_counter()
+    rate = time_chain(lambda x, ww: k.stencil_jvp(x, ww, N), v, w)
+    per_us = 1e6 / rate
+    log(f"[time_chain K1] n={N} f32: {rate:.1f} matvecs/s = {per_us:.2f} us a "
+        f"chained matvec, beside K1's device time {k1_ms * 1e3:.2f} us a call "
+        f"(phase 2): the chain runs at {k1_ms * 1e3 / per_us:.0%} of the "
+        f"device-bound rate ({'device' if k1_ms * 1e3 >= 0.8 * per_us else 'host dispatch'}"
+        f" sets it); {time.perf_counter() - t0:.1f} s")
+    if not rate > 0:
+        raise AssertionError("time_chain on K1: no rate")
+    return rate
+
+
+def phase_trace(torch, loaded, u0, workdir):
+    """(r3) ``trace()`` around one loaded flagship solve inside an
+    ``annotate`` range: the trace file must exist and hold that range."""
+    import glob
+
+    from newtonkrylov_tpu_torch.utils.profiling import annotate, trace
+
+    logdir = os.path.join(workdir, "trace")
+    t0 = time.perf_counter()
+    with trace(logdir):
+        with annotate("flagship_solve"):
+            loaded.call(u0)
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} trace files in {logdir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[trace] {os.path.basename(files[0])}: {os.path.getsize(files[0]) / 2**20:.1f} "
+        f"MiB, {len(events)} events ({kernels} kernels), the annotate range "
+        f"{'present' if 'flagship_solve' in names else 'MISSING'}; "
+        f"{time.perf_counter() - t0:.1f} s with the export of the trace")
+    if "flagship_solve" not in names:
+        raise AssertionError("trace: the annotate range is not in the trace")
 
 
 def main() -> int:
@@ -2229,10 +2514,10 @@ def main() -> int:
                 raise AssertionError(f"{key} was never launched by the {path}")
         return out
 
-    flagship = {}  # its state, for path (q)
+    flagship, aligned = {}, {}  # their states and walls, for paths (q), (r)
 
     def main_path():  # the first slice's: the aligned and flagship solves
-        return (phase_aligned(torch, nkt, bratu2d, "run"),
+        return (phase_aligned(torch, nkt, bratu2d, "run", keep=aligned),
                 phase_flagship(torch, nkt, bratu2d, "run", keep=flagship))
 
     info_a, info_f = counted("main path", ("stencil_jvp", "bratu_residual"),
@@ -2240,6 +2525,58 @@ def main() -> int:
     if launches["stencil_jvp"] < info_a.stats.inner_iterations:
         raise AssertionError("K1 launched fewer times than the aligned "
                              "solve's inner iterations")
+
+    # this slice's path (r): the exported solves, the chain timer and the
+    # trace (the sharded (r4) and (q5) run in path (q)'s group below)
+    import shutil
+    import tempfile
+
+    from newtonkrylov_tpu_torch.utils.profiling import PhaseTimer, solve_report
+
+    t0 = time.perf_counter()
+    timer, workdir = PhaseTimer(), tempfile.mkdtemp(prefix="chip_smoke_r_")
+    try:
+        loaded_f, u0_f, info_r1 = phase_export_flagship(
+            torch, nkt, bratu2d, info_f, flagship, timer, workdir)
+        run_r2, check_r2 = phase_export_aligned(
+            torch, nkt, bratu2d, info_a, aligned, timer, workdir)
+        r2_launches = {}
+        check_r2(*counted("exported aligned solve (loaded program)",
+                          ("stencil_jvp", "bratu_residual"), run_r2,
+                          into=r2_launches))
+        # The loaded program launches K1 once a CG matvec (each outer's
+        # r₀ = b − A·x₀ included) and K2 once a residual (u₀'s and one an
+        # outer).  The live solve launches more: each torch.func.linearize
+        # evaluates the residual three times (its output, its traced dual,
+        # its constant folding) and the J·v once while it traces, where the
+        # program replays a graph traced once with fake tensors.
+        outer, inner = (info_a.stats.outer_iterations,
+                        info_a.stats.inner_iterations)
+        k1, k2 = r2_launches["stencil_jvp"], r2_launches["bratu_residual"]
+        log(f"[export aligned] loaded program: K1 {k1} launches (inner + "
+            f"outer = {inner + outer}), K2 {k2} (outer + 1 = {outer + 1}); "
+            f"the live aligned solve: K1 {launches['stencil_jvp']}, K2 "
+            f"{launches['bratu_residual']}, of which its {outer} "
+            f"linearizations' tracing launched K1 {outer} and K2 {3 * outer} "
+            f"times")
+        if (k1, k2) != (inner + outer, outer + 1) or (
+                launches["stencil_jvp"] - k1, launches["bratu_residual"] - k2
+        ) != (outer, 3 * outer):
+            raise AssertionError("export aligned: the loaded program's K1/K2 "
+                                 "launches do not account for the live solve's")
+        r3_launches = {}
+        counted("time_chain on K1", ("stencil_jvp",),
+                lambda: phase_time_chain(torch, bratu2d, summary["stencil_jvp"][1]),
+                into=r3_launches)
+        log(f"[time_chain K1] {r3_launches['stencil_jvp']} K1 launches")
+        phase_trace(torch, loaded_f, u0_f, workdir)
+        log("[phase timer] path (r)\n" + timer.summary())
+        log("[solve_report] loaded flagship (r1)\n"
+            + solve_report(info_r1, N * N))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del aligned["u"]
+    log(f"[summary] path (r): {time.perf_counter() - t0:.1f} s")
     per_matvec = counted("chain lane", ("stencil_jvp_chain",
                                         "stencil_chain_probe"),
                          lambda: phase_chain_lane(torch, bratu2d))

@@ -16,7 +16,8 @@ flow; near it δ → δ_max and the step is an inexact Newton step.  The step
 is the Newton drivers' own (:func:`~newtonkrylov_tpu_torch.newton._newton_step`)
 on the shifted operator; the loop keeps its state on the device and reads
 one boolean back per step, as
-:func:`~newtonkrylov_tpu_torch.newton.newton_krylov_jit` does.
+:func:`~newtonkrylov_tpu_torch.newton.newton_krylov_jit` does, and exports
+as a ``while_loop`` in the same way (:mod:`~newtonkrylov_tpu_torch.exportable`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .exportable import counter, record, while_loop
 from .forcing import Fixed, Forcing
 from .newton import (NewtonInfo, Stats, _finish, _newton_step,
                      _resolve_forcing, _setup)
@@ -94,13 +96,14 @@ def pseudo_transient(
     delta = torch.full((), delta0, **scalar)
     delta_cap = torch.full((), delta_max, **scalar)
     tiny = torch.full((), torch.finfo(dtype).tiny, **scalar)
-    hist = torch.full((max_steps + 2,), float("nan"), **scalar)
-    hist[0] = s.n_res0
+    hist = record(torch.full((max_steps + 2,), float("nan"), **scalar), 0,
+                  s.n_res0)
+    tol, limit = s.tol, counter(s.n_res0, max_steps)
 
-    u, res, n_res, tol = s.u0, s.res0, s.n_res0, s.tol
-    outer = inner = 0
-    blown = torch.zeros((), dtype=torch.bool, device=device)
-    while outer <= max_steps and bool((n_res > tol) & ~blown):
+    def cond(outer, inner, u, res, n_res, delta, eta, hist, blown):
+        return (outer <= limit) & (n_res > tol) & ~blown
+
+    def body(outer, inner, u, res, n_res, delta, eta, hist, blown):
         u, res, n_new, niter = _newton_step(
             F, p, s, u, res, n_res, eta if forcing is not None else None,
             space=space, algo=algo, krylov_kwargs=krylov_kwargs, M=M, N=N,
@@ -112,10 +115,12 @@ def pseudo_transient(
                               delta * n_res / torch.maximum(n_new, tiny))
         if forcing is not None:
             eta = forcing(eta, tol, n_new, n_res)
-        hist[outer + 1] = n_new
-        n_res = n_new
-        outer += 1
-        inner += niter
+        return (outer + 1, inner + niter, u, res, n_new, delta, eta,
+                record(hist, outer + 1, n_new), blown)
+
+    outer, inner, u, _, n_res, _, _, hist, blown = while_loop(cond, body, (
+        counter(s.n_res0), counter(s.n_res0), s.u0, s.res0, s.n_res0, delta,
+        eta, hist, torch.zeros((), dtype=torch.bool, device=device)))
 
     info = NewtonInfo(
         solved=(n_res <= tol) & ~blown,

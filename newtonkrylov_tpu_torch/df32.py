@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .exportable import jvp as _jvp
 from .tree import tree_map, tree_norm
 from .utils import default_device
 
@@ -226,11 +227,24 @@ def neighbor_sum(up: DF, offsets) -> DF:
     return s
 
 
+# Host-constant helpers: results depend only on their float arguments, so a
+# traced residual (an exported solve's loop body) takes them as constants.
+@torch.compiler.assume_constant_result
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float."""
+    return float(np.float32(x))
+
+
+@torch.compiler.assume_constant_result
+def _is_pow2(f: float) -> bool:
+    m, _ = math.frexp(f)
+    return m in (0.5, -0.5) or f == 0.0
+
+
 def scale_pow2(a: DF, c) -> DF:
     """c·a for a power-of-two constant — exact on both words."""
     f = float(c)
-    m, _ = np.frexp(f)
-    if not (m in (0.5, -0.5) or f == 0.0):
+    if not _is_pow2(f):
         raise ValueError(f"{c} is not a power of two")
     return DF(f * a.hi, f * a.lo)
 
@@ -240,10 +254,11 @@ def scale_const(a: DF, c: float) -> DF:
     pair, a double-word multiply, returned without the final renormalizing
     ``fast_two_sum`` (the JAX package's choice: every consumer starts with an
     exact ``two_sum``, and XLA:CPU reassociates that last step away)."""
-    chi = np.float32(c)
-    clo = float(np.float32(float(c) - float(chi)))
-    p, e = two_prod(a.hi, torch.tensor(chi, device=a.hi.device))
-    e = e + (a.hi * clo + a.lo * float(chi))
+    chi = _f32(float(c))
+    clo = _f32(float(c) - chi)
+    p, e = two_prod(a.hi, torch.tensor(chi, dtype=torch.float32,
+                                       device=a.hi.device))
+    e = e + (a.hi * clo + a.lo * chi)
     return DF(p, e)
 
 
@@ -255,8 +270,8 @@ def scaled_exp(a: DF, c: float) -> DF:
     if cf == 0.0:
         raise ValueError("scaled_exp needs a nonzero constant")
     lnc = math.log(abs(cf))
-    lnc_hi = float(np.float32(lnc))
-    lnc_lo = float(np.float32(lnc - lnc_hi))
+    lnc_hi = _f32(lnc)
+    lnc_lo = _f32(lnc - lnc_hi)
     out = exp(add(a, DF(torch.full_like(a.hi, lnc_hi),
                         torch.full_like(a.hi, lnc_lo))))
     return out if cf > 0 else neg(out)
@@ -330,7 +345,7 @@ def selfcheck(device=None) -> bool:
 _RND_PROBE_CALIBRATION = 4.0
 
 
-def floor_estimate(F, u_hi, p=None, space=None):
+def floor_estimate(F, u_hi, p=None, space=None, jvp_graph=None):
     """Acceptance floor of a df32-carried solve at state ``u_hi``.
 
     ``‖J(u)·(±ε_dd·|u|)‖ / 4`` with ε_dd = 2⁻⁴⁷ and signs alternating along
@@ -338,6 +353,8 @@ def floor_estimate(F, u_hi, p=None, space=None):
     response is kept) — two forward-mode tangents of the plain residual
     ``F`` in the Krylov dtype.  See the JAX package's ``floor_estimate`` for
     the measurements behind the design.  A zero state returns 0.
+    ``jvp_graph`` is the J·v graph an export traced ahead of its loops
+    (:func:`~newtonkrylov_tpu_torch.exportable.jvp`).
     """
     def sign_leaf(h, last: bool):
         shape = tuple(h.shape) if h.dim() else (1,)
@@ -351,7 +368,7 @@ def floor_estimate(F, u_hi, p=None, space=None):
     def response(last: bool):
         delta = tree_map(lambda h: h.abs() * 2.0 ** -47 * sign_leaf(h, last),
                          u_hi)
-        _, jd = torch.func.jvp(lambda uu: F(uu, p), (u_hi,), (delta,))
+        jd = _jvp(F, u_hi, p, delta, jvp_graph)
         return tree_norm(jd) if space is None else space.norm(jd)
 
     nrm = torch.maximum(response(True), response(False))

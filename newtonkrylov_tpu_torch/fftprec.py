@@ -37,6 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .exportable import exporting
 from .mg import _probe_offsets, probe_5point
 from .utils import default_device
 from .utils import distributed as _dist
@@ -85,12 +86,21 @@ def dst_poisson_solver(o, dbar, shape, dtype, method: str = "auto",
         Sc0 = sine_basis(m, dtype, device)
         consts = {}  # per operand dtype: (Sr, Sc, 1/λ-table, norm)
 
+        def constants(dt):
+            return (Sr0.to(dt), Sc0.to(dt), safe.to(dt),
+                    torch.tensor(norm, dtype=dt, device=device))
+
+        # made here for the solver's dtype: an exported solve applies the
+        # preconditioner inside its loops, where a new constant cannot be
+        # serialized and a cache may not be filled
+        consts[dtype] = constants(dtype)
+
         def apply(r):
             c = consts.get(r.dtype)
             if c is None:
-                c = consts[r.dtype] = (
-                    Sr0.to(r.dtype), Sc0.to(r.dtype), safe.to(r.dtype),
-                    torch.tensor(norm, dtype=r.dtype, device=device))
+                c = constants(r.dtype)
+                if not exporting():  # a traced constant stays out
+                    consts[r.dtype] = c
             Sr, Sc, lam_r, norm_r = c
             rh = torch.matmul(torch.matmul(Sr, r), Sc)
             rh = rh / lam_r

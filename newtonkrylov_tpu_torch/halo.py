@@ -20,8 +20,12 @@ for them — wrapped in an ``autograd.Function`` whose JVP runs the same
 exchange on the tangent (the exchange is linear).  So a residual that
 exchanges ghosts linearizes under :func:`torch.func.linearize`, and every
 replayed J·v exchanges the tangent's ghosts again; a raw send inside the
-residual would be traced away.  The exchange's transpose (a VJP through it)
-is not ported (ROADMAP.md Queue 3 item 19).
+residual would be traced away.  Its backward is the transpose: the
+cotangent of each received ghost strip goes back to the rank that owns
+those cells, by the same exchange run the other way, and adds to the
+cotangent of the edge that rank sent.  So ``J.rmv``, ``cgls`` and any VJP
+through :func:`exchange_1d`/:func:`exchange_2d` work on the mesh, as the
+transpose of ``ppermute`` does under ``shard_map``.
 
 Axis names resolve against the current mesh (:func:`make_mesh` makes its
 mesh current; :func:`newton_krylov_sharded` uses its own).  An axis of size
@@ -276,17 +280,26 @@ def _(g_lo, g_hi):
     return torch.empty_like(g_lo), torch.empty_like(g_hi)
 
 
-_NO_TRANSPOSE = ("the transpose of the ghost exchange (a VJP through "
-                 "exchange_1d/exchange_2d: J.rmv, cgls, the adjoint of a "
-                 "sharded solve) is not ported (ROADMAP.md Queue 3 item 19)")
-
-
 def _zeros_if_none(t, like):
     return torch.zeros_like(like) if t is None else t
 
 
+# The exchange's transpose is the exchange itself, run on the cotangents:
+# ghost_lo came from the previous rank's high edge, so its cotangent goes
+# back to that rank as the cotangent of its high edge, which is what
+# ``post(c_lo, c_hi)`` delivers as the receiver's ``ghost_hi`` — and the
+# same for the other side.  A Dirichlet outermost rank's ghost is the
+# boundary value: the forward zeroed what it received, and the transpose
+# zeroes the same receive, so that ghost's cotangent is dropped.  An axis
+# of size 1 swaps (periodic) or zeroes (Dirichlet) the two edges, its own
+# transpose.  Backward runs Wait's transpose (post) before Post's (wait),
+# in the same order on every rank.
+
+
 class _Post(torch.autograd.Function):
-    """``post`` with its JVP: the same exchange of the tangent's edges."""
+    """``post`` with its JVP (the same exchange of the tangent's edges) and
+    its transpose (completing the cotangents' exchange that
+    :class:`_Wait`'s backward posted)."""
 
     @staticmethod
     def forward(edge_lo, edge_hi, key, bc):
@@ -304,28 +317,35 @@ class _Post(torch.autograd.Function):
                         _zeros_if_none(t_hi, edge_hi), ctx.key, ctx.bc)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_NO_TRANSPOSE)
+    def backward(ctx, c_lo, c_hi):
+        g_lo, g_hi = _wait_op(c_lo, c_hi)
+        return g_lo, g_hi, None, None
 
 
 class _Wait(torch.autograd.Function):
-    """``wait`` with its JVP: complete the tangent's exchange."""
+    """``wait`` with its JVP (complete the tangent's exchange) and its
+    transpose (post the cotangents' exchange, the other way)."""
 
     @staticmethod
-    def forward(g_lo, g_hi):
+    def forward(g_lo, g_hi, key, bc):
         return _wait_op(g_lo, g_hi)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        g_lo, g_hi, ctx.key, ctx.bc = inputs
+        ctx.like = [(g.shape, g.dtype, g.device) for g in (g_lo, g_hi)]
 
     @staticmethod
-    def jvp(ctx, t_lo, t_hi):
+    def jvp(ctx, t_lo, t_hi, _key, _bc):
         return _wait_op(t_lo, t_hi)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_NO_TRANSPOSE)
+    def backward(ctx, c_lo, c_hi):
+        c_lo, c_hi = (torch.zeros(shape, dtype=dtype, device=device)
+                      if c is None else c
+                      for c, (shape, dtype, device) in zip((c_lo, c_hi), ctx.like))
+        c_lo, c_hi = _post_op(c_lo, c_hi, ctx.key, ctx.bc)
+        return c_lo, c_hi, None, None
 
 
 def _key(ax: str) -> str:
@@ -333,8 +353,10 @@ def _key(ax: str) -> str:
 
 
 def _post(edge_lo, edge_hi, ax, bc):
-    """Post one axis's exchange: ``(ghost_lo, ghost_hi)`` in flight."""
-    return _Post.apply(edge_lo, edge_hi, _key(ax), bc)
+    """Post one axis's exchange: ``(ghost_lo, ghost_hi, key, bc)``, the
+    ghosts in flight."""
+    key = _key(ax)
+    return (*_Post.apply(edge_lo, edge_hi, key, bc), key, bc)
 
 
 def _wait(pending):

@@ -29,8 +29,11 @@ Two drivers share one Newton step (:func:`_newton_step`):
 
 The two give the same iterates, bit for bit, and the same counts: the
 step is one function, and where the outer norm is float64 the host's
-forcing update is the device's arithmetic.  Capturing the loops in CUDA
-graphs is later work.
+forcing update is the device's arithmetic.  Under ``torch.export`` the loop
+of :func:`newton_krylov_jit` is a ``while_loop`` over the same body, so a
+whole solve exports as one program (:mod:`~newtonkrylov_tpu_torch.exportable`,
+:mod:`~newtonkrylov_tpu_torch.utils.serving`); :func:`newton_krylov` has
+no exported form.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import torch
 
 from . import df32 as _dd
 from . import solvers
+from .exportable import (counter, exporting, jvp_graph, record,
+                         require_eager, while_loop)
 from .forcing import EisenstatWalker, Forcing
 from .operator import JacobianOperator, ShiftedOperator
 from .spaces import EuclideanSpace, VectorSpace
@@ -108,24 +113,36 @@ def _cast_floating(tree, dt):
     return tree_map(cast, tree)
 
 
-def _linearize_for_inner(F, p, u, res, krylov_dtype, residual_df):
+def _linearization_point(p, u, krylov_dtype, residual_df):
+    """(u, p) at which the inner operator is linearized under the three
+    precision modes (see :func:`_linearize_for_inner`)."""
+    if residual_df is not None:
+        return (tree_map(lambda l: l.to(krylov_dtype), u.hi),
+                _cast_floating(p, krylov_dtype))
+    if krylov_dtype is not None:
+        return (tree_map(lambda l: l.to(krylov_dtype), u),
+                _cast_floating(p, krylov_dtype))
+    return u, p
+
+
+def _linearize_for_inner(F, p, u, res, krylov_dtype, residual_df,
+                         jvp_graph=None):
     """(J, b) for the inner solve under the three precision modes:
 
     * df32 — linearize at the hi word, RHS = carried ``res.hi``, both in
       ``krylov_dtype``, params' float tensors cast down too;
     * low-precision refinement — state and carried residual cast down;
     * plain — linearize at the state.
+
+    ``jvp_graph`` is the J·v graph an export traced ahead of its loops.
     """
+    u_lin, p_lin = _linearization_point(p, u, krylov_dtype, residual_df)
+    J = JacobianOperator(F, u_lin, p_lin, jvp_graph=jvp_graph)
     if residual_df is not None:
-        u_low = tree_map(lambda l: l.to(krylov_dtype), u.hi)
-        J = JacobianOperator(F, u_low, _cast_floating(p, krylov_dtype))
         b = tree_map(lambda l: l.to(krylov_dtype), res.hi)
     elif krylov_dtype is not None:
-        u_low = tree_map(lambda l: l.to(krylov_dtype), u)
-        J = JacobianOperator(F, u_low, _cast_floating(p, krylov_dtype))
         b = tree_map(lambda l: l.to(krylov_dtype), res)
     else:
-        J = JacobianOperator(F, u, p)
         # the linearization's own primal, not the carried residual: the
         # JAX package pins this choice for count parity between its drivers
         b = J.res
@@ -174,6 +191,7 @@ class _Setup(NamedTuple):
     krylov_dtype: Any
     out_f64: bool      # df32 path: return hi + lo as float64
     outer_res: Callable  # u ↦ its acceptance residual
+    jvp_graph: Optional[Callable] = None  # exporting: J·v, traced once
 
 
 def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
@@ -212,22 +230,27 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
     _gmres_parity_default(krylov_kwargs, algo, res0_main)
     n_res0 = space.norm(res0_main)
     tol = tol_rel * n_res0 + tol_abs
+    # an export traces the linearization once, ahead of the loops
+    graph = (jvp_graph(F, *_linearization_point(p, u0, krylov_dtype,
+                                                residual_df))
+             if exporting() else None)
     floor_limited = torch.zeros((), dtype=torch.bool, device=n_res0.device)
     if residual_df is not None and floor_rtol is not None:
         floor0 = _dd.floor_estimate(
             F, tree_map(lambda l: l.to(krylov_dtype), u0.hi),
-            _cast_floating(p, krylov_dtype), space=space)
+            _cast_floating(p, krylov_dtype), space=space, jvp_graph=graph)
         tol_clamped = torch.maximum(tol, floor_rtol * floor0)
         floor_limited = tol_clamped > tol
         tol = tol_clamped
     return _Setup(u0, res0, n_res0, tol, floor_limited, krylov_dtype, out_f64,
-                  outer_res)
+                  outer_res, graph)
 
 
 def _static_preconditioners(F, p, s: _Setup, M, N, residual_df):
     """``(M(J₀), N(J₀))`` on the u₀ operator of the precision mode, for
     ``precond_refresh="once"``."""
-    J0, _ = _linearize_for_inner(F, p, s.u0, s.res0, s.krylov_dtype, residual_df)
+    J0, _ = _linearize_for_inner(F, p, s.u0, s.res0, s.krylov_dtype,
+                                 residual_df, s.jvp_graph)
     return (M(J0) if M is not None else None), (N(J0) if N is not None else None)
 
 
@@ -243,7 +266,8 @@ def _newton_step(F, p, s: _Setup, u, res, n_res, rtol, *, space, algo,
     None for the solver's default.  Returns (u, its acceptance residual,
     the residual's norm, inner iterations).
     """
-    J, b = _linearize_for_inner(F, p, u, res, s.krylov_dtype, residual_df)
+    J, b = _linearize_for_inner(F, p, u, res, s.krylov_dtype, residual_df,
+                                s.jvp_graph)
     A = J if shift is None else ShiftedOperator(J, shift)
     kw = dict(krylov_kwargs)
     kw["space"] = space
@@ -344,6 +368,7 @@ def newton_krylov(
     then exclude the step that blew up.
     """
     del jit_step
+    require_eager("newton_krylov")
     space = space or EuclideanSpace()
     forcing = _resolve_forcing(forcing)
     krylov_kwargs = dict(krylov_kwargs or {})
@@ -428,7 +453,8 @@ def newton_krylov_jit(
     the device.
 
     Returns ``(u, NewtonInfo)``: ``solved`` and ``stats.n_res`` are device
-    tensors, the iteration counts Python ints, ``t`` the wall-clock seconds
+    tensors, the iteration counts Python ints (0-d tensors in an export),
+    ``t`` the wall-clock seconds
     of the solve and ``history`` a ``(max_niter + 2,)`` residual-norm trace
     padded with NaN.
 
@@ -470,18 +496,19 @@ def newton_krylov_jit(
     dtype, device = s.n_res0.dtype, s.n_res0.device
     eta = torch.full((), forcing.initial() if forcing is not None else 0.0,
                      dtype=dtype, device=device)
-    hist = torch.full((max_niter + 2,), float("nan"), dtype=dtype,
-                      device=device)
-    hist[0] = s.n_res0
+    hist = record(torch.full((max_niter + 2,), float("nan"), dtype=dtype,
+                             device=device), 0, s.n_res0)
 
     m_static = n_static = None
     if precond_refresh == "once" and (M is not None or N is not None):
         m_static, n_static = _static_preconditioners(F, p, s, M, N, residual_df)
 
-    u, res, n_res, tol = s.u0, s.res0, s.n_res0, s.tol
-    outer = inner = 0
-    blown = torch.zeros((), dtype=torch.bool, device=device)
-    while outer <= max_niter and bool((n_res > tol) & ~blown):
+    tol, limit = s.tol, counter(s.n_res0, max_niter)
+
+    def cond(outer, inner, u, res, n_res, eta, hist, blown):
+        return (outer <= limit) & (n_res > tol) & ~blown
+
+    def body(outer, inner, u, res, n_res, eta, hist, blown):
         # The acceptance residual is carried from the previous outer's
         # evaluation: one high-precision residual per outer.
         u_new, res, n_new, niter = _newton_step(
@@ -492,10 +519,12 @@ def newton_krylov_jit(
         blown = ~torch.isfinite(n_new)
         if forcing is not None:
             eta = forcing(eta, tol, n_new, n_res)
-        hist[outer + 1] = n_new
-        u, n_res = u_new, n_new
-        outer += 1
-        inner += niter
+        return (outer + 1, inner + niter, u_new, res, n_new, eta,
+                record(hist, outer + 1, n_new), blown)
+
+    outer, inner, u, _, n_res, _, hist, blown = while_loop(cond, body, (
+        counter(s.n_res0), counter(s.n_res0), s.u0, s.res0, s.n_res0, eta,
+        hist, torch.zeros((), dtype=torch.bool, device=device)))
 
     info = NewtonInfo(
         solved=(n_res <= tol) & ~blown,

@@ -26,6 +26,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .exportable import exporting
+from .exportable import jvp_graph as _jvp_graph
 from .tree import tree_dtype, tree_leaves, tree_map, tree_size
 
 __all__ = [
@@ -54,13 +56,27 @@ class JacobianOperator(LinearOperator):
     """Lazy J = ∂F/∂u at a linearization point.
 
     ``F(u, p) -> res`` is a pure residual; ``p`` is held constant.
-    ``res`` is F(u, p), a by-product of the linearization.
+    ``res`` is F(u, p), a by-product of the linearization.  Under
+    :func:`torch.export.export` the operator applies ``jvp_graph``
+    (:func:`~newtonkrylov_tpu_torch.exportable.jvp_graph` of ``F`` at
+    states and parameters shaped like ``u`` and ``p``) instead: its
+    linearization is evaluated at ``u`` here, and each J·v replays only the
+    tangent map, as the linearize graph does.
     """
 
-    def __init__(self, F: Callable, u: Any, p: Any = None):
+    def __init__(self, F: Callable, u: Any, p: Any = None,
+                 jvp_graph: Callable = None):
         self.F = F
         self.u = u
         self.p = p
+        self._vjp = None  # built on first use; most solves never need it
+        if exporting():
+            # an export replays the linearization as a traced J·v graph
+            # (built here unless a driver built it ahead of its loop)
+            graph = jvp_graph or _jvp_graph(F, u, p)
+            self.res = F(u, p)
+            self._jvp = graph.linearize(u, p)
+            return
         with warnings.catch_warnings():
             # linearize's constant folding builds its folded module before
             # attaching the constants it references and warns about it;
@@ -69,7 +85,6 @@ class JacobianOperator(LinearOperator):
                 "ignore", message="Attempted to insert a get_attr Node",
                 category=UserWarning)
             self.res, self._jvp = torch.func.linearize(lambda uu: F(uu, p), u)
-        self._vjp = None  # built on first use; most solves never need it
 
     def mv(self, v):
         """J @ v by replaying the stored linearization."""

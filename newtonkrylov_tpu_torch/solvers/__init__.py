@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import inspect
 
+from ..exportable import exporting
 from .bicgstab import bicgstab, cgls
 from .cg import cg
 from .common import KrylovResult
@@ -34,6 +35,10 @@ def solve(algo: str, A, b, x0=None, **kwargs) -> KrylovResult:
     except KeyError:
         raise ValueError(
             f"unknown algo {algo!r}; available: {available_algos()}") from None
+    if algo != "cg" and exporting():
+        raise NotImplementedError(
+            f"algo={algo!r} has no exported form (its loop reads the host); "
+            "an exported solve runs algo=\"cg\"")
     params = inspect.signature(fn).parameters
     if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
         return fn(A, b, x0, **kwargs)

@@ -4,7 +4,10 @@ Counterpart of ``newtonkrylov_tpu/solvers/cg.py``: the same recurrences,
 space-injected reductions and Krylov.jl termination
 ``‖r‖ ≤ atol + rtol·‖r₀‖``.  Each loop is a Python ``while`` over device
 scalars that reads back one boolean (pipelined: two, in one transfer) per
-iteration, the only host synchronisation of an iteration.
+iteration, the only host synchronisation of an iteration.  Under
+``torch.export`` the plain recurrence's loop is a ``while_loop`` over the
+same body (:mod:`~newtonkrylov_tpu_torch.exportable`); the pipelined one
+has no exported form.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..exportable import counter, require_eager, while_loop
 from ..spaces import EuclideanSpace, VectorSpace
 from ..tree import tree_axpy, tree_dtype, tree_size, tree_sub, tree_zeros_like
 from .common import KrylovResult, as_operator, default_tols, nonzero_or_one
@@ -54,22 +58,24 @@ def cg(
     if itmax is None:
         itmax = 2 * tree_size(b) * space.size_multiplier()
     if pipeline:
+        require_eager("pipelined CG")
         return _cg_pipelined(Aop, Mop, b, x0, itmax, atol, rtol, space, dtype)
 
     def precond(r):
         return Mop(r) if Mop is not None else r
 
-    x = x0
     r = space.mask_tree(tree_sub(b, Aop(x0)))
     p = precond(r)
     rz = space.dot(r, p)
     resnorm = space.norm(r)
     eps_abs = atol + rtol * resnorm
-    k = 0
     converged = resnorm <= eps_abs
-    breakdown = torch.zeros_like(converged)
+    limit = counter(resnorm, itmax)
 
-    while k < itmax and not bool(converged | breakdown):
+    def cond(k, x, r, p, rz, resnorm, converged, breakdown):
+        return (k < limit) & ~(converged | breakdown)
+
+    def body(k, x, r, p, rz, resnorm, converged, breakdown):
         # No per-iteration re-masking: operators preserve the space's mask
         # and the space's reductions are mask-weighted regardless.
         Ap = Aop(p)
@@ -85,11 +91,12 @@ def cg(
         resnorm = torch.sqrt(rr.real)
         beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
         p = tree_axpy(beta, p, z)
-        rz = rz_new
-        k += 1
-        converged = resnorm <= eps_abs
-        breakdown = breakdown | brk
+        return (k + 1, x, r, p, rz_new, resnorm, resnorm <= eps_abs,
+                breakdown | brk)
 
+    k, x, _, _, _, resnorm, converged, breakdown = while_loop(cond, body, (
+        counter(resnorm), x0, r, p, rz, resnorm, converged,
+        torch.zeros_like(converged)))
     return KrylovResult(x, k, resnorm, converged, breakdown)
 
 

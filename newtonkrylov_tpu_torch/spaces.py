@@ -20,6 +20,7 @@ from typing import Any, Sequence
 
 import torch
 
+from .exportable import exporting
 from .tree import tree_dtype, tree_map, tree_norm, tree_project_rows, tree_vdot
 from .utils import distributed as _dist
 
@@ -92,7 +93,9 @@ class MaskedSpace(VectorSpace):
     def _mask_as(self, dtype):
         m = self._cast.get(dtype)
         if m is None:
-            m = self._cast[dtype] = tree_map(lambda l: l.to(dtype), self.mask)
+            m = tree_map(lambda l: l.to(dtype), self.mask)
+            if not exporting():  # a traced cast stays out of the cache
+                self._cast[dtype] = m
         return m
 
     def dot(self, x, y):

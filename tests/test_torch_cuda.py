@@ -771,3 +771,115 @@ def test_sharded_flagship_world1_nccl(cuda_device, tmp_path):
     applies = info.stats.inner_iterations + info.stats.outer_iterations
     assert counts["reduce_scatter"] == 4 * applies
     assert counts["all_reduce"] > 0 and counts["p2p"] == 0
+
+
+def test_exported_flagship_on_card(cuda_device, tmp_path):
+    """The production flagship at 256² exported whole, saved, loaded and
+    called on the card: solved, the live solve's counts, and its state bit
+    for bit (the loaded program runs the live solve's ops)."""
+    from newtonkrylov_tpu_torch.utils import serving
+
+    n = 256
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device).double()
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled, u, p, algo="cg", tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    live = fn(u0)
+    path = serving.save_exported(serving.export_solver(fn, (u0,)),
+                                 str(tmp_path / "flagship.pt2"))
+    u, outer, inner, solved = serving.load_exported(path).call(u0)
+    assert bool(solved) and bool(live[3])
+    assert (int(outer), int(inner)) == (live[1], live[2])
+    assert torch.equal(u, live[0])
+
+
+def test_exported_aligned_launches_kernels(cuda_device, tmp_path):
+    """The aligned solve at 128² exported and loaded: the loaded program
+    launches K1 once a CG matvec and K2 once a residual, the live solve's
+    launches less those of its linearizations' tracing (three residuals and
+    one J·v each), with the live counts and state bit for bit."""
+    from newtonkrylov_tpu_torch.utils import serving
+
+    n = 128
+    u0, p, space = tb.aligned_setup(n, lam=5.0, dtype=torch.float64,
+                                    device=cuda_device)
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled_aligned, u, p, algo="cg", space=space,
+            krylov_dtype=torch.float32, tol_rel=1e-8, max_niter=20)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    tk.reset_launch_counts()
+    live = fn(u0)
+    want = dict(tk.LAUNCHES)
+    loaded = serving.load_exported(serving.save_exported(
+        serving.export_solver(fn, (u0,)), str(tmp_path / "aligned.pt2")))
+    tk.reset_launch_counts()
+    u, outer, inner = loaded.call(u0)
+    outer_l, inner_l = live[1], live[2]
+    assert tk.LAUNCHES["stencil_jvp"] == inner_l + outer_l == (
+        want["stencil_jvp"] - outer_l)
+    assert tk.LAUNCHES["bratu_residual"] == outer_l + 1 == (
+        want["bratu_residual"] - 3 * outer_l)
+    assert (int(outer), int(inner)) == (live[1], live[2])
+    assert torch.equal(u, live[0])
+
+
+def test_time_chain_on_k1(cuda_device):
+    """``time_chain`` on K1 at 256² f32 returns a positive rate, and every
+    chained step launched K1 once."""
+    from newtonkrylov_tpu_torch.utils.profiling import time_chain
+
+    n = 256
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    v = _rand(n, cuda_device, torch.float32, gen)
+    w = _rand(n, cuda_device, torch.float32, gen, absval=True) * 0.01
+    tk.reset_launch_counts()
+    rate = time_chain(lambda x, ww: tk.stencil_jvp(x, ww, n), v, w, chain=20,
+                      repeats=2)
+    assert rate > 0
+    assert tk.LAUNCHES["stencil_jvp"] == (1 + 2) * (2 + 20)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_exchange_transpose_world1_nccl(cuda_device, tmp_path, overlap):
+    """The ghost exchange's transpose on a world-1 NCCL group at 256² f64:
+    Jᵀw of the exchanged residual against the unsharded Jᵀw (bit for bit in
+    the plain exchange form; the overlapped form sums the edge strips in
+    another order: 1e-12 relative), and the dot test."""
+    from newtonkrylov_tpu_torch import halo
+    from newtonkrylov_tpu_torch.operator import JacobianOperator
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils.dryrun import bratu_padded
+
+    n = 256
+    p = tb.default_config(n, lam=5.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    u = tb.initial_guess(n, device=cuda_device)
+    v, w = (torch.randn((n, n), generator=gen, device=cuda_device,
+                        dtype=torch.float64) for _ in range(2))
+    J1 = JacobianOperator(tb.residual_scaled, u, p)
+    assert D.initialize("file://" + str(tmp_path / "store"), 1, 0, device="cuda")
+    try:
+        mesh = halo.make_mesh((1, 1), ("i", "j"), device_type="cuda")
+        F = halo.sharded_residual_2d(bratu_padded, ("i", "j"), overlap=overlap)
+        with D.use_mesh(mesh):
+            J = JacobianOperator(F, halo.shard_array(u, mesh, halo.P("i", "j")), p)
+            jtw, jv = J.rmv(w), J.mv(v)
+    finally:
+        D.shutdown()
+    ref = J1.rmv(w)
+    if overlap:
+        assert float((jtw - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    else:
+        assert torch.equal(jtw, ref)
+    gap = abs(float((jv * w).sum() - (v * jtw).sum()))
+    assert gap <= 1e-12 * float(jv.norm() * w.norm())

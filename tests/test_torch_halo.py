@@ -442,6 +442,60 @@ def case_overlap_structure(mesh):
     return out
 
 
+# -- The transpose of the exchange (J.rmv, cgls) -------------------------------
+
+TRANSPOSE_CASES = [
+    # (name, axes, bc, overlap, global shape)
+    ("rows4_dirichlet", ("i",), "dirichlet", None, (32,)),
+    ("rows4_periodic", ("i",), "periodic", None, (32,)),
+    ("grid_dirichlet", ("i", "j"), "dirichlet", True, (16, 16)),
+    ("grid_periodic", ("i", "j"), "periodic", True, (16, 16)),
+    ("grid_dirichlet_plain", ("i", "j"), "dirichlet", False, (16, 16)),
+]
+CGLS_ITMAX = 400  # the unsharded solves converge in 55–249
+
+
+def _transpose_inputs(shape):
+    """Seeded (u, v, w): a state near zero, a tangent and a cotangent."""
+    rng = np.random.default_rng(7)
+    return tuple(rng.standard_normal(shape) * s for s in (0.1, 1.0, 1.0))
+
+
+def _transpose_params(shape):
+    from newtonkrylov_tpu_torch.problems import bratu1d, bratu2d
+
+    n = shape[0]
+    return (bratu1d.default_config(n, lam=3.0) if len(shape) == 1
+            else bratu2d.default_config(n, lam=5.0))
+
+
+def case_transpose(mesh, axes, bc, overlap, shape):
+    """J·v, Jᵀ·w and a CGLS solve through the exchanged residual, gathered
+    to the global arrays."""
+    from newtonkrylov_tpu_torch import halo, solvers
+    from newtonkrylov_tpu_torch.operator import JacobianOperator
+    from newtonkrylov_tpu_torch.spaces import ShardedSpace
+    from newtonkrylov_tpu_torch.utils import distributed as D
+
+    spec = halo.P(*axes)
+    p = _transpose_params(shape)
+    with D.use_mesh(mesh):
+        if len(axes) == 1:
+            F = halo.sharded_residual_1d(_bratu1d_padded, axes[0], bc)
+        else:
+            F = halo.sharded_residual_2d(_bratu_padded, axes, bc,
+                                         overlap=overlap)
+        u, v, w = (halo.shard_array(torch.tensor(x), mesh, spec)
+                   for x in _transpose_inputs(shape))
+        J = JacobianOperator(F, u, p)
+        res = solvers.cgls(J, J.res, space=ShardedSpace(axis_names=axes),
+                           itmax=CGLS_ITMAX, atol=0.0, rtol=1e-10)
+        return {"jv": _np(halo.gather_array(J.mv(v), mesh, spec)),
+                "jtw": _np(halo.gather_array(J.rmv(w), mesh, spec)),
+                "cgls": _np(halo.gather_array(res.x, mesh, spec)),
+                "cgls_iters": int(res.niter)}
+
+
 def _run_cases(cases):
     """Run ``[(name, fn, args)]`` on this rank; a case that raises records
     its traceback instead of a result."""
@@ -469,7 +523,13 @@ def world4_cases():
         ("snapshots", case_snapshots, (mesh,)),
         ("overlap_oracle", case_overlap_oracle, (mesh,)),
         ("convert", case_convert, (mesh,)),
-    ])
+    ] + _transpose_cases(mesh, halo.make_mesh((4,), ("i",), device_type="cpu")))
+
+
+def _transpose_cases(grid, rows):
+    return [(f"transpose_{name}", case_transpose,
+             (rows if len(axes) == 1 else grid, axes, bc, overlap, shape))
+            for name, axes, bc, overlap, shape in TRANSPOSE_CASES]
 
 
 def world8_cases():
@@ -896,3 +956,101 @@ def test_bulk_compute_independent_of_exchange(world8):
     assert frac_plain > 0.5, frac_plain
     assert frac_over < 0.5 * frac_plain, (frac_over, frac_plain)
 
+
+
+# The transpose of the exchange (ROADMAP.md Queue 3 item 19, repaired)
+
+
+def _port_unsharded(shape, bc):
+    """(J, u) of the port's unsharded residual on the padded global state."""
+    from newtonkrylov_tpu_torch.operator import JacobianOperator
+
+    p = _transpose_params(shape)
+    padded = _bratu1d_padded if len(shape) == 1 else _bratu_padded
+
+    def pad(x, dim):
+        """One ghost on each side of ``dim``: zero or the wrap."""
+        lo, hi = x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)
+        if bc == "dirichlet":
+            lo, hi = torch.zeros_like(lo), torch.zeros_like(hi)
+        return torch.cat([hi, x, lo], dim)
+
+    def F(x, pp):
+        for dim in range(x.dim()):
+            x = pad(x, dim)
+        return padded(x, pp)
+
+    u, _, _ = _transpose_inputs(shape)
+    return JacobianOperator(F, torch.tensor(u), p)
+
+
+def _jax_sharded_vjp(shape, axes, bc, overlap, w):
+    """The JAX package's Jᵀw: ``jax.vjp`` through its ``shard_map``ped
+    residual on 4 virtual devices."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from newtonkrylov_tpu.halo import (make_mesh, shard_array,
+                                       sharded_residual_1d, sharded_residual_2d)
+    from newtonkrylov_tpu.problems import bratu1d as jb1
+    from newtonkrylov_tpu.problems import bratu2d as jb2
+
+    n = shape[0]
+    if len(axes) == 1:
+        p = jb1.default_config(n, lam=3.0)
+
+        def padded(yp, pp):
+            y = yp[1:-1]
+            return (yp[2:] - 2.0 * y + yp[:-2]) + (pp.dx * pp.dx) * pp.lam * jnp.exp(y)
+
+        F = sharded_residual_1d(padded, axes[0], bc)
+        mesh = make_mesh((4,), ("i",))
+    else:
+        p = jb2.default_config(n, lam=5.0)
+        F = sharded_residual_2d(_jax_bratu_padded, axes, bc, overlap=overlap)
+        mesh = make_mesh((2, 2), ("i", "j"))
+    spec = JP(*axes)
+    f = jax.shard_map(lambda ul: F(ul, p), mesh=mesh, in_specs=(spec,),
+                      out_specs=spec, check_vma=False)
+    u, _, _ = _transpose_inputs(shape)
+    _, vjp = jax.vjp(f, shard_array(jnp.asarray(u), mesh, spec))
+    (out,) = vjp(shard_array(jnp.asarray(w), mesh, spec))
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("name,axes,bc,overlap,shape", TRANSPOSE_CASES,
+                         ids=[c[0] for c in TRANSPOSE_CASES])
+def test_exchange_transpose(world4, name, axes, bc, overlap, shape):
+    """Jᵀw through the exchanged residual (1-D on 4 ranks, 2-D on 2×2;
+    Dirichlet and periodic; the overlapped and the plain form): against
+    the port's unsharded Jᵀw within 1e-12 relative, against the JAX
+    package's ``jax.vjp`` through ``shard_map`` within 2e-11 (the level of
+    the unsharded packages' own f64 agreement, TOL_JAX_CG), and the dot
+    test |⟨Jv, w⟩ − ⟨v, Jᵀw⟩| ≤ 1e-12·‖Jv‖‖w‖."""
+    got = _result(world4, f"transpose_{name}")
+    _, v, w = _transpose_inputs(shape)
+    J = _port_unsharded(shape, bc)
+    _assert_rel(got["jv"], _np(J.mv(torch.tensor(v))), TOL_SINGLE)
+    _assert_rel(got["jtw"], _np(J.rmv(torch.tensor(w))), TOL_SINGLE)
+    _assert_rel(got["jtw"], _jax_sharded_vjp(shape, axes, bc, overlap, w),
+                TOL_JAX_CG)
+    lhs, rhs = float(np.vdot(got["jv"], w)), float(np.vdot(v, got["jtw"]))
+    bound = 1e-12 * np.linalg.norm(got["jv"]) * np.linalg.norm(w)
+    assert abs(lhs - rhs) <= bound, (lhs, rhs, bound)
+
+
+@pytest.mark.parametrize("name", ["rows4_periodic", "grid_dirichlet"])
+def test_cgls_on_sharded_residual(world4, name):
+    """CGLS with J.rmv on the sharded residual reaches the unsharded CGLS
+    result: the same iteration count and the solution within 1e-10
+    relative (the solves' rtol; the all-reduces add in another order)."""
+    from newtonkrylov_tpu_torch import solvers
+
+    _, _, bc, _, shape = next(c for c in TRANSPOSE_CASES if c[0] == name)
+    got = _result(world4, f"transpose_{name}")
+    J = _port_unsharded(shape, bc)
+    ref = solvers.cgls(J, J.res, itmax=CGLS_ITMAX, atol=0.0, rtol=1e-10)
+    assert bool(ref.converged)
+    assert got["cgls_iters"] == ref.niter
+    _assert_rel(got["cgls"], _np(ref.x), 1e-10)
