@@ -20,9 +20,11 @@ Phases (each raises on failure; the script exits non-zero after any):
    on the same seeded inputs with random ghosts and apron (so the tiles'
    wrapped halos are exercised; k = 33, 200 and degree 40 take several
    passes), the 2048² f32 cases timed the same way;
-4. the probe kernel K6 against its plain version, bit for bit: each of the
-   JAX probe's 20 variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed
-   per call;
+4. the probe kernel K6 (overlapped tiles, passes of at most 16 steps)
+   against its plain version, bit for bit: each of the JAX probe's 20
+   variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed per call, and
+   every step at the pass boundaries (carried and ping-pong at k = 15, 16,
+   17, 33, 34; ping-pong unrolled 2 and 4 at k = 36 and 40) at n = 64;
 5. ``df32.selfcheck()`` on the card;
 6. the main path of the first slice: the aligned-layout solve at 2048² (f64
    state, f32 Krylov, matvecs through K1, residuals through K2) and the
@@ -133,9 +135,17 @@ Phases (each raises on failure; the script exits non-zero after any):
     linearizations' tracing); (r3) ``time_chain`` on K1 at 2048² f32
     beside K1's device time, the ``PhaseTimer`` summary and
     ``solve_report`` of (r1), and a ``trace()`` of one loaded flagship
-    solve holding an ``annotate`` range.
+    solve holding an ``annotate`` range;
+18. path (s), run just after the GMRES flagship of phase 10: (s1) that
+    flagship — ``newton_krylov_jit`` with its default ``algo="gmres"`` —
+    exported, saved, loaded and called twice: solved, the live solve's
+    counts and its state bit for bit, with the export time, the
+    artifact's size and the loaded walls beside the live one; (s2) Ψtc
+    (default GMRES), BiCGStab and pipelined CG on Bratu 64² in f64 and CGLS
+    on a 64-unknown cubic tridiagonal system, each exported, loaded and
+    held bit for bit against its live run.
 
-Launch counts are zeroed just before each of phases 6–13 and 15–17 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–18 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
 the two Cheb-PCG paths at 2048², the Ψtc path and the heat march).  The
@@ -161,6 +171,7 @@ CHEB_REF_1024 = (8, 377)  # outer/inner of the JAX package's Cheb-PCG lane
 #                           at 1024² (BENCH_r05.json), a count, not a time
 PROBE_N = 1024    # the JAX probe's default size (benchmarks/kernel_probe.py)
 PROBE_KS = 400    # its short chain: the K6 call the kernels JSON times
+PROBE_PASS = 16   # the most steps one K6 pass runs (csrc/chain_probe.cu)
 CONVDIFF_N = 512  # the largest convection lane of bench.py (bench.py:333)
 CG_FLAGSHIP = (6, 7)  # the CG flagship's outer/inner counts at 2048²
 CONV_C = 25.0     # the convection-dominated lanes of bench.py (bench.py:284)
@@ -540,6 +551,7 @@ def phase_probe_kernels(torch):
                     f"({kp.steps_run(steps, **kw)} steps run): bitwise equal; "
                     f"per call {t:.4f} ms vs plain {p:.4f} ms (CUDA events)")
     log(f"[probe kernels] {cases} cases bitwise equal to the plain version")
+    err = max(err, _probe_boundaries(torch, gen))
     v, w = tprobe.inputs(PROBE_N, dev)
 
     def kern():
@@ -556,6 +568,44 @@ def phase_probe_kernels(torch):
         f"bitwise equal; per call {t:.4f} ms vs plain {p:.4f} ms (CUDA "
         f"events); device time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
     return (err, td if td is not None else t, pd if pd is not None else p)
+
+
+def _probe_boundaries(torch, gen):
+    """K6 at its pass boundaries, bit for bit against the plain version:
+    every step of ``kernels/probe.py``'s STEPS, carried and ping-pong, at
+    k = S − 1, S, S + 1, 2S + 1 and 2S + 2 (S = 16 steps a pass), and
+    ping-pong unrolled 2 and 4 at k = 36 and 40 (passes of 16, 16 and 4 or
+    8 steps), on the 64² layout (72 × 128: a tile's halo wraps the array
+    more than once).  Returns the largest |kernel − plain|."""
+    from newtonkrylov_tpu_torch.kernels import probe as kp
+
+    dev = torch.device("cuda", 0)
+    shape = (72, 128)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    w = torch.randn(shape, generator=gen, device=dev,
+                    dtype=torch.float32).abs() + 0.1
+    S = PROBE_PASS
+    runs = [(k, {}) for k in (S - 1, S, S + 1, 2 * S + 1, 2 * S + 2)]
+    runs += [(k, {"pingpong": True}) for k in (S - 1, S, S + 1, 2 * S + 1,
+                                               2 * S + 2)]
+    runs += [(36, {"pingpong": True, "unroll": 2}),
+             (40, {"pingpong": True, "unroll": 4})]
+    err, cases = 0.0, 0
+    for step in kp.STEPS:
+        for k_steps, kw in runs:
+            got = kp.chain_call(step, v, w, k_steps, **kw)
+            ref = kp.chain_call_xla(step, v, w, k_steps, **kw)
+            e = float((got - ref).abs().max())
+            if not (bool(torch.isfinite(ref).all())
+                    and _bitwise_equal(torch, got, ref)):
+                raise AssertionError(f"K6 pass boundary {step} k={k_steps} "
+                                     f"{kw}: differs from plain, max|err| "
+                                     f"{e:.3e}")
+            err, cases = max(err, e), cases + 1
+    log(f"[probe kernels] pass boundaries: {cases} cases ({len(kp.STEPS)} "
+        f"steps × {len(runs)} calls, S = {S}) bitwise equal to the plain "
+        f"version")
+    return err
 
 
 def phase_probe_lane(torch):
@@ -696,13 +746,14 @@ def phase_flagship(torch, nkt, bratu2d, pass_name, keep=None):
                        f"flagship {pass_name}, DST(high)", keep=keep)
 
 
-def phase_gmres_flagship(torch, nkt, bratu2d, pass_name):
+def phase_gmres_flagship(torch, nkt, bratu2d, pass_name, keep=None):
     """The flagship configuration with ``algo="gmres"`` and no ``restart``:
     the driver's parity basis of min(n², 100) applies."""
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
 
     info = _df32_solve(torch, nkt, bratu2d, N, fft_poisson(precision="high"),
-                       f"gmres flagship {pass_name}, DST(high)", algo="gmres")
+                       f"gmres flagship {pass_name}, DST(high)", algo="gmres",
+                       keep=keep)
     log(f"[gmres flagship {pass_name}] n={N} outer/inner "
         f"{info.stats.outer_iterations}/{info.stats.inner_iterations} beside "
         f"CG's {CG_FLAGSHIP[0]}/{CG_FLAGSHIP[1]} on the same configuration")
@@ -2422,6 +2473,130 @@ def phase_export_aligned(torch, nkt, bratu2d, info_a, live, timer, workdir):
     return run, check
 
 
+def phase_export_gmres_flagship(torch, nkt, bratu2d, info_g, live, timer,
+                                workdir):
+    """(s1) the GMRES flagship at 2048² — ``newton_krylov_jit`` with its
+    default ``algo="gmres"`` (the parity basis of 100), f32 Krylov, df32
+    acceptance, DST(high) built once — exported whole, saved, loaded and
+    called twice: solved, the live GMRES flagship's counts (6 / 7) and its
+    state bit for bit."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    p = bratu2d.default_config(N, lam=LAM)
+    u0 = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda").to(
+        torch.float64)
+
+    def fn(u):  # every keyword as phase_gmres_flagship's solve; no algo=
+        u, info = nkt.newton_krylov_jit(
+            bratu2d.residual_scaled, u, p, tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=bratu2d.residual_scaled_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    loaded, size, _ = _roundtrip(torch, fn, (u0,), "gmres flagship", timer,
+                                 workdir)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer("gmres flagship: loaded call"):
+            u, outer, inner, solved = loaded.call(u0)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    fu, f0 = _true_residual(torch, bratu2d, u, u0, p)
+    counts = (int(outer), int(inner))
+    ref = (info_g.stats.outer_iterations, info_g.stats.inner_iterations)
+    log(f"[export gmres flagship] n={N}: export "
+        f"{timer.totals['gmres flagship: export']:.2f} s, artifact "
+        f"{size / 2**20:.1f} MiB, load {timer.totals['gmres flagship: load']:.2f}"
+        f" s; loaded solved={bool(solved)} outer/inner {counts[0]}/{counts[1]} "
+        f"(live {ref[0]}/{ref[1]}); wall {walls[0]:.3f} s first call, "
+        f"{walls[1]:.3f} s second, beside the live GMRES flagship's "
+        f"{live['wall']:.3f} s; true |F|={fu:.4e} (limit "
+        f"{1e-8 * f0 + 1e-12:.4e})")
+    if not bool(solved):
+        raise AssertionError("export gmres flagship: the loaded solve did not "
+                             "converge")
+    if not fu <= 1e-8 * f0 + 1e-12:
+        raise AssertionError("export gmres flagship: f64 true residual above "
+                             "1e-8·‖F₀‖")
+    if counts != ref:
+        raise AssertionError("export gmres flagship: counts differ from the "
+                             "live GMRES flagship's")
+    if not _bitwise_equal(torch, u, live["u"]):
+        raise AssertionError("export gmres flagship: state not bit for bit "
+                             "the live solve's")
+    log("[export gmres flagship] state bit for bit equal to the live solve's")
+
+
+def phase_export_small(torch, nkt, bratu2d, timer, workdir):
+    """(s2) Ψtc (default GMRES), BiCGStab, pipelined CG on Bratu 64² in f64
+    (tol_rel 1e-10; Ψtc on −F, δ₀ = (n+1)², no preconditioner: a factory
+    rebuilt every step fills its caches inside the loop) and CGLS on the
+    cubic A u + u³/10 = b (A = tridiag(−1, 4, −1), n = 64, A a parameter,
+    so the loop replays a traced Jᵀ·w) exported, loaded and called on the
+    card: each solved, with its live run's counts and state bit for bit."""
+    f64 = torch.float64
+    dev = "cuda"
+    p = bratu2d.default_config(64, lam=LAM)
+    u0 = bratu2d.initial_guess(64, dtype=f64, device=dev)
+    n = 64
+    A = (4.0 * torch.eye(n, dtype=f64, device=dev)
+         - torch.diag(torch.ones(n - 1, dtype=f64, device=dev), 1)
+         - torch.diag(torch.ones(n - 1, dtype=f64, device=dev), -1))
+    b = torch.sin(torch.arange(n, dtype=f64, device=dev) + 1.0)
+
+    def cubic(u, q):
+        return q[0] @ u + 0.1 * u ** 3 - q[1]
+
+    def newton(algo, **kw):
+        def fn(u):
+            u, info = nkt.newton_krylov_jit(bratu2d.residual_scaled, u, p,
+                                            algo=algo, tol_rel=1e-10, **kw)
+            return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+        return fn
+
+    def ptc(u):  # Ψtc marches −F (test_torch_continuation.py's recipe)
+        u, info = nkt.pseudo_transient(
+            lambda x, q: -bratu2d.residual_scaled(x, q), u, p, tol_rel=1e-10,
+            delta0=float(65 ** 2), max_steps=60)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    def cgls(u):
+        u, info = nkt.newton_krylov_jit(cubic, u, (A, b), algo="cgls",
+                                        tol_rel=1e-10)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    cases = (("ptc gmres", ptc, u0), ("bicgstab", newton("bicgstab"), u0),
+             ("pipelined cg", newton("cg", krylov_kwargs={"pipeline": True}), u0),
+             ("cgls", cgls, torch.zeros(n, dtype=f64, device=dev)))
+    for tag, fn, x0 in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = fn(x0)
+        torch.cuda.synchronize()
+        live_wall = time.perf_counter() - t0
+        loaded, size, _ = _roundtrip(torch, fn, (x0,), tag, timer, workdir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loaded.call(x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, ref = (int(out[1]), int(out[2])), (int(live[1]), int(live[2]))
+        log(f"[export small] {tag}: export {timer.totals[f'{tag}: export']:.2f}"
+            f" s, artifact {size / 2**20:.2f} MiB; loaded outer/inner "
+            f"{counts[0]}/{counts[1]} (live {ref[0]}/{ref[1]}), solved="
+            f"{bool(out[3])}; wall {wall:.3f} s beside the live {live_wall:.3f} s")
+        if not (bool(out[3]) and bool(live[3])):
+            raise AssertionError(f"export small {tag}: not solved")
+        if counts != ref or not _bitwise_equal(torch, out[0], live[0]):
+            raise AssertionError(f"export small {tag}: the loaded program "
+                                 "differs from the live solve")
+    log(f"[export small] {len(cases)} exported solves bit for bit equal to "
+        "their live runs")
+
+
 def phase_time_chain(torch, bratu2d, k1_ms):
     """(r3) ``bench.py``'s ``r_pal`` lane on the port: ``time_chain`` on K1
     at 2048² f32 (w = Δx²λeᵘ at the sin-bump u₀), beside phase 2's device
@@ -2604,8 +2779,23 @@ def main() -> int:
     model = counted("probe lane", ("chain_call",),
                     lambda: phase_probe_lane(torch))
     # the GMRES paths run no hand-written kernel: their counts are logged
-    counted("gmres flagship", (),
-            lambda: phase_gmres_flagship(torch, nkt, bratu2d, "run"))
+    gmres = {}
+    info_g = counted("gmres flagship", (), lambda: phase_gmres_flagship(
+        torch, nkt, bratu2d, "run", keep=gmres))
+
+    # this slice's path (s): every Krylov method exported; no kernel runs
+    t0 = time.perf_counter()
+    timer, workdir = PhaseTimer(), tempfile.mkdtemp(prefix="chip_smoke_s_")
+    try:
+        counted("exported gmres flagship (s1)", (), lambda: phase_export_gmres_flagship(
+            torch, nkt, bratu2d, info_g, gmres, timer, workdir))
+        counted("exported small solves (s2)", (),
+                lambda: phase_export_small(torch, nkt, bratu2d, timer, workdir))
+        log("[phase timer] path (s)\n" + timer.summary())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del gmres["u"]
+    log(f"[summary] path (s): {time.perf_counter() - t0:.1f} s")
     counted("convdiff solve", (), lambda: phase_convdiff(torch, nkt, "run"))
     # this slice's paths (b)-(e) run no hand-written kernel: counts logged
     counted("flagship pipelined solve", (),
@@ -2739,9 +2929,9 @@ def main() -> int:
             f" ({bound_by}); {launches[name]} launches on its path")
     for name, us in per_matvec.items():
         log(f"[summary] {name}: {us * 1e3:.2f} us per chained matvec")
-    log(f"[summary] probe cost model at {PROBE_N}²: copy + grid sync per step "
-        f"{model['copy_sync_stencil_us']:.3f} us (stencil), step through "
-        f"memory {model['memory_step_us'][2]:.3f} us (mul x2), row shift "
+    log(f"[summary] probe cost model at {PROBE_N}²: copy + block barrier per "
+        f"step {model['copy_barrier_stencil_us']:.3f} us (stencil), pass "
+        f"through memory, per step {model['pass_step_us'][2]:.3f} us (mul x2), row shift "
         f"{model['row_shift_us']:.3f} us, column shift "
         f"{model['column_shift_us']:.3f} us, per multiply "
         f"{model['per_mul_us']:.3f} us")

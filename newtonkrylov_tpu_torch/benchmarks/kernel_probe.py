@@ -8,9 +8,12 @@ runs k dependent steps in one launch, which prices per step:
 
 * elementwise arithmetic (chains of 2, 4 and 8 multiplies);
 * a shift along a row (axis 0) or a column (axis 1);
-* a carried state against a ping-pong state: on the card a carried
-  multiply chain stays in registers, while a carried neighbour-reading step
-  pays one copy and one more grid sync per step (``csrc/chain_probe.cu``);
+* a carried state against a ping-pong state: on the card every step runs
+  on the overlapped tiles of K3–K5 (``csrc/tiled.cuh``), passes of at most
+  16 steps held on chip; a carried multiply chain stays in registers, a
+  ping-pong step exchanges its tiles' edges through shared memory behind
+  one block barrier, and a carried neighbour-reading step pays an on-chip
+  copy of those edges and one more barrier (``csrc/chain_probe.cu``);
 * four formulations of the stencil step.
 
 Timing: chain differencing, (best of ``REPEATS`` at ``KL`` steps − best at
@@ -149,10 +152,10 @@ def cost_model(timings: dict) -> dict:
         "row_shift_us": (t["roll sublane x4 (+mul)"] - t["roll sublane x1 (+mul)"]) / 3,
         "column_shift_us": (t["roll lane x4 (+mul)"] - t["roll lane x1 (+mul)"]) / 3,
         "roll_overhead_us": t["stencil hoisted pingpong"] - t["stencil rolls->muls pingpong"],
-        "copy_sync_stencil_us": t["stencil hoisted+fused"] - t["stencil hoisted pingpong"],
-        "copy_sync_row_us": t["roll sublane x1 (+mul)"] - t["roll sublane x1 pingpong"],
-        "copy_sync_column_us": t["roll lane x1 (+mul)"] - t["roll lane x1 pingpong"],
-        "memory_step_us": {m: t[f"mul x{m} pingpong"] - t[f"mul x{m}"] for m in (2, 4, 8)},
+        "copy_barrier_stencil_us": t["stencil hoisted+fused"] - t["stencil hoisted pingpong"],
+        "copy_barrier_row_us": t["roll sublane x1 (+mul)"] - t["roll sublane x1 pingpong"],
+        "copy_barrier_column_us": t["roll lane x1 (+mul)"] - t["roll lane x1 pingpong"],
+        "pass_step_us": {m: t[f"mul x{m} pingpong"] - t[f"mul x{m}"] for m in (2, 4, 8)},
     }
     print("\n--- cost model ---")
     print(f"per-mul: {model['per_mul_us']:.3f} us (marginal x4->x8, carried in "
@@ -166,12 +169,14 @@ def cost_model(timings: dict) -> dict:
           f"{t['stencil hoisted+fused']:.3f} -> pingpong "
           f"{t['stencil hoisted pingpong']:.3f} (r1+pingpong "
           f"{t['stencil r1 pingpong']:.3f})")
-    print(f"copy + grid sync per step (carry - pingpong): stencil hoisted "
-          f"{model['copy_sync_stencil_us']:.3f} us, row roll "
-          f"{model['copy_sync_row_us']:.3f} us, column roll "
-          f"{model['copy_sync_column_us']:.3f} us")
-    print("step through memory (mul pingpong - mul carried in registers): "
-          + ", ".join(f"x{m} {us:.3f} us" for m, us in model["memory_step_us"].items()))
+    print(f"copy + block barrier per step (carry - pingpong): stencil hoisted "
+          f"{model['copy_barrier_stencil_us']:.3f} us, row roll "
+          f"{model['copy_barrier_row_us']:.3f} us, column roll "
+          f"{model['copy_barrier_column_us']:.3f} us")
+    print("pass through memory, per step (mul pingpong - mul carried in "
+          "registers: the tiles' edge exchange, barrier and halo, and a pass's "
+          "load and store over its steps): "
+          + ", ".join(f"x{m} {us:.3f} us" for m, us in model["pass_step_us"].items()))
     print(f"card: {card()}")
     return model
 

@@ -9,13 +9,18 @@ Newton outers, CG inners, the df32 acceptance — is one exported program
 only the loop around it differs.
 
 * :func:`while_loop` — ``state ← body(*state)`` while ``cond(*state)``.
+* :func:`fori_loop` — ``state ← body(i, *state)`` for ``i`` in
+  ``[lo, hi)``: a Python loop over ints eagerly, a ``while_loop`` over a
+  tensor index when exporting (a bound that depends on the data, such as
+  a GMRES step's rotations, is a tensor there).
 * :func:`counter` — an iteration count or bound: a Python int eagerly, a
   0-d int64 tensor on the state's device when exporting.
 * :func:`record` — write one entry of a preallocated history.
 * :func:`jvp` — ``(u, v, p) ↦ J(u)·v`` of a residual ``F(u, p)``: eagerly
   :func:`torch.func.jvp`; when exporting a :class:`JVPGraph` traced once,
   ahead of the loops, since ``torch.func`` transforms cannot be traced
-  inside a ``while_loop`` body.
+  inside a ``while_loop`` body.  :func:`vjp_graph` traces ``Jᵀ·w`` the
+  same way, for the adjoint CGLS applies inside its loop.
 
 A ``while_loop`` body is traced by Dynamo and may not mutate Python state:
 caches that the body would fill (``MaskedSpace``'s mask casts, the DST
@@ -29,8 +34,8 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
-__all__ = ["exporting", "while_loop", "counter", "record", "jvp",
-           "jvp_graph", "JVPGraph", "require_eager"]
+__all__ = ["exporting", "while_loop", "fori_loop", "counter", "record",
+           "jvp", "jvp_graph", "vjp_graph", "JVPGraph", "require_eager"]
 
 
 def exporting() -> bool:
@@ -43,7 +48,7 @@ def require_eager(what: str) -> None:
     if exporting():
         raise NotImplementedError(
             f"{what} steps from the host and has no exported form; export "
-            "newton_krylov_jit or pseudo_transient with algo=\"cg\"")
+            "newton_krylov_jit or pseudo_transient")
 
 
 def counter(like: torch.Tensor, start: int = 0):
@@ -90,6 +95,33 @@ def while_loop(cond: Callable, body: Callable, state):
                                  spec)
 
 
+def fori_loop(lo, hi, body, state, like: torch.Tensor = None):
+    """``state ← body(i, *state)`` for ``i`` in ``[lo, hi)``; returns the
+    state.
+
+    Eagerly ``lo`` and ``hi`` are Python ints and ``i`` runs over them with
+    no host read.  When exporting either bound may be a 0-d tensor (a count
+    the loop around carries): the loop is a :func:`while_loop` over ``(i,
+    *state)`` with ``i`` a 0-d int64 tensor on ``like``'s device, and the
+    body indexes with it."""
+    state = tuple(state)
+    if not exporting():
+        for i in range(lo, hi):
+            state = tuple(body(i, *state))
+        return state
+
+    def bound(b):
+        if isinstance(b, torch.Tensor):
+            return b
+        return torch.full((), b, dtype=torch.int64, device=like.device)
+
+    stop = bound(hi)
+    out = while_loop(lambda i, *s: i < stop,
+                     lambda i, *s: (i + 1, *body(i, *s)),
+                     (bound(lo), *state))
+    return tuple(out[1:])
+
+
 def _tensor_leaves(p):
     leaves, spec = pytree.tree_flatten(p)
     idx = [i for i, l in enumerate(leaves) if isinstance(l, torch.Tensor)]
@@ -106,7 +138,8 @@ class JVPGraph:
     ``exp(u)``), evaluated once per linearization point, and the tangent
     map, evaluated per J·v.  This is the split ``torch.func.linearize``
     makes by constant folding, with the state a graph input instead of a
-    constant.  Built by :func:`jvp_graph`."""
+    constant.  Built by :func:`jvp_graph`; :func:`vjp_graph` builds the
+    same pair for ``Jᵀ·w``."""
 
     def __init__(self, primal, tangent, p_idx, out_spec):
         self._primal, self._tangent = primal, tangent
@@ -149,7 +182,13 @@ def _split(gm, tangent_inputs):
         if node in tangent or node.op == "output":
             continue
         env[node] = primal.node_copy(node, lambda n: env[n])
-    primal.output(tuple(env[n] for n in boundary))
+    # a view among the linearization's values (a parameter's transpose,
+    # which Jᵀ·w reads) leaves as a copy: a while_loop refuses two inputs
+    # that share storage
+    primal.output(tuple(
+        primal.call_function(torch.ops.aten.clone.default, (env[n],))
+        if n.op == "call_function" and getattr(n.target, "is_view", False)
+        else env[n] for n in boundary))
     primal.eliminate_dead_code()
     tan, env = fx.Graph(), {}
     for n in boundary:
@@ -161,6 +200,56 @@ def _split(gm, tangent_inputs):
             env[node] = tan.node_copy(node, lambda n: env[n])
     tan.output(torch.fx.map_arg(out.args[0], lambda n: env[n]))
     return fx.GraphModule(gm, primal), fx.GraphModule(gm, tan)
+
+
+def _linear_graph(F: Callable, u, p, cotangent: bool) -> JVPGraph:
+    """J·v (or, ``cotangent``, Jᵀ·w) of ``F(·, p)`` traced by ``make_fx``
+    and split into the linearization and the linear map (:func:`jvp_graph`,
+    :func:`vjp_graph`)."""
+    import torch._guards
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    u_leaves, u_spec = pytree.tree_flatten(u)
+    p_leaves, p_spec, idx = _tensor_leaves(p)
+    n_u = len(u_leaves)
+    out_spec = []  # the result's tree structure, seen while tracing
+
+    def linear_flat(*args):
+        # the order of the graph's inputs: u, p's tensors, v (or w)
+        uu = pytree.tree_unflatten(list(args[:n_u]), u_spec)
+        leaves = list(p_leaves)
+        for i, t in zip(idx, args[n_u:n_u + len(idx)]):
+            leaves[i] = t
+        pp = pytree.tree_unflatten(leaves, p_spec)
+        v = pytree.tree_unflatten(list(args[n_u + len(idx):]), u_spec)
+        if cotangent:
+            out = torch.func.vjp(lambda x: F(x, pp), uu)[1](v)[0]
+        else:
+            out = torch.func.jvp(lambda x: F(x, pp), (uu,), (v,))[1]
+        flat, spec = pytree.tree_flatten(out)
+        out_spec.append(spec)
+        return tuple(flat)
+
+    # outside the export's modes and its tracing context, whose fake mode
+    # make_fx would otherwise adopt (and give the graph symbolic shapes)
+    with (_disable_current_modes(), torch._C.DisableTorchFunction(),
+          torch._guards.tracing(None)):
+        # distinct example tensors: make_fx maps each tensor object to one
+        # graph input
+        examples = ([_example(l) for l in u_leaves]
+                    + [_example(p_leaves[i]) for i in idx]
+                    + [_example(l) for l in u_leaves])
+        gm = make_fx(linear_flat, tracing_mode="fake")(*examples)
+    for node in list(gm.graph.nodes):
+        if (node.op == "call_function" and not node.users
+                and not isinstance(node.meta.get("val"), torch.Tensor)):
+            gm.graph.erase_node(node)
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    inputs = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    primal, tangent = _split(gm, inputs[n_u + len(idx):])
+    return JVPGraph(primal, tangent, idx, out_spec[0])
 
 
 def jvp_graph(F: Callable, u, p: Any = None) -> JVPGraph:
@@ -175,47 +264,15 @@ def jvp_graph(F: Callable, u, p: Any = None) -> JVPGraph:
     traces only ops that return tensors.  The graph is split into the
     linearization and the tangent map (:class:`JVPGraph`).
     """
-    import torch._guards
-    from torch.fx.experimental.proxy_tensor import make_fx
-    from torch.utils._python_dispatch import _disable_current_modes
+    return _linear_graph(F, u, p, cotangent=False)
 
-    u_leaves, u_spec = pytree.tree_flatten(u)
-    p_leaves, p_spec, idx = _tensor_leaves(p)
-    n_u = len(u_leaves)
-    out_spec = []  # the residual's tree structure, seen while tracing
 
-    def jvp_flat(*args):
-        # the order of the graph's inputs: u, p's tensors, v
-        uu = pytree.tree_unflatten(list(args[:n_u]), u_spec)
-        leaves = list(p_leaves)
-        for i, t in zip(idx, args[n_u:n_u + len(idx)]):
-            leaves[i] = t
-        pp = pytree.tree_unflatten(leaves, p_spec)
-        v = pytree.tree_unflatten(list(args[n_u + len(idx):]), u_spec)
-        out = torch.func.jvp(lambda x: F(x, pp), (uu,), (v,))[1]
-        flat, spec = pytree.tree_flatten(out)
-        out_spec.append(spec)
-        return tuple(flat)
-
-    # outside the export's modes and its tracing context, whose fake mode
-    # make_fx would otherwise adopt (and give the graph symbolic shapes)
-    with (_disable_current_modes(), torch._C.DisableTorchFunction(),
-          torch._guards.tracing(None)):
-        # distinct example tensors: make_fx maps each tensor object to one
-        # graph input
-        examples = ([_example(l) for l in u_leaves]
-                    + [_example(p_leaves[i]) for i in idx]
-                    + [_example(l) for l in u_leaves])
-        gm = make_fx(jvp_flat, tracing_mode="fake")(*examples)
-    for node in list(gm.graph.nodes):
-        if (node.op == "call_function" and not node.users
-                and not isinstance(node.meta.get("val"), torch.Tensor)):
-            gm.graph.erase_node(node)
-    gm.graph.eliminate_dead_code()
-    gm.recompile()
-    inputs = [n for n in gm.graph.nodes if n.op == "placeholder"]
-    primal, tangent = _split(gm, inputs[n_u + len(idx):])
-    return JVPGraph(primal, tangent, idx, out_spec[0])
+def vjp_graph(F: Callable, u, p: Any = None) -> JVPGraph:
+    """``(uu, w, pp) ↦ J(uu)ᵀ·w`` of ``F(·, pp)`` as :func:`jvp_graph`
+    traces J·v: the linearization (the forward values the transpose reads)
+    and the cotangent map, split.  ``F`` maps a state to a residual of the
+    state's structure and shapes (a square system, as a Newton step's)."""
+    return _linear_graph(F, u, p, cotangent=True)
 
 
 def jvp(F: Callable, u, p: Any, v, graph: Callable = None):

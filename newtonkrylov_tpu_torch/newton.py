@@ -47,7 +47,7 @@ import torch
 from . import df32 as _dd
 from . import solvers
 from .exportable import (counter, exporting, jvp_graph, record,
-                         require_eager, while_loop)
+                         require_eager, vjp_graph, while_loop)
 from .forcing import EisenstatWalker, Forcing
 from .operator import JacobianOperator, ShiftedOperator
 from .spaces import EuclideanSpace, VectorSpace
@@ -126,7 +126,7 @@ def _linearization_point(p, u, krylov_dtype, residual_df):
 
 
 def _linearize_for_inner(F, p, u, res, krylov_dtype, residual_df,
-                         jvp_graph=None):
+                         jvp_graph=None, vjp_graph=None):
     """(J, b) for the inner solve under the three precision modes:
 
     * df32 — linearize at the hi word, RHS = carried ``res.hi``, both in
@@ -134,10 +134,12 @@ def _linearize_for_inner(F, p, u, res, krylov_dtype, residual_df,
     * low-precision refinement — state and carried residual cast down;
     * plain — linearize at the state.
 
-    ``jvp_graph`` is the J·v graph an export traced ahead of its loops.
+    ``jvp_graph`` (``vjp_graph``) is the J·v (Jᵀ·w) graph an export traced
+    ahead of its loops.
     """
     u_lin, p_lin = _linearization_point(p, u, krylov_dtype, residual_df)
-    J = JacobianOperator(F, u_lin, p_lin, jvp_graph=jvp_graph)
+    J = JacobianOperator(F, u_lin, p_lin, jvp_graph=jvp_graph,
+                         vjp_graph=vjp_graph)
     if residual_df is not None:
         b = tree_map(lambda l: l.to(krylov_dtype), res.hi)
     elif krylov_dtype is not None:
@@ -192,6 +194,7 @@ class _Setup(NamedTuple):
     out_f64: bool      # df32 path: return hi + lo as float64
     outer_res: Callable  # u ↦ its acceptance residual
     jvp_graph: Optional[Callable] = None  # exporting: J·v, traced once
+    vjp_graph: Optional[Callable] = None  # exporting, CGLS: Jᵀ·w, traced once
 
 
 def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
@@ -230,10 +233,11 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
     _gmres_parity_default(krylov_kwargs, algo, res0_main)
     n_res0 = space.norm(res0_main)
     tol = tol_rel * n_res0 + tol_abs
-    # an export traces the linearization once, ahead of the loops
-    graph = (jvp_graph(F, *_linearization_point(p, u0, krylov_dtype,
-                                                residual_df))
-             if exporting() else None)
+    # an export traces the linearization once, ahead of the loops (and the
+    # transpose, for CGLS)
+    point = _linearization_point(p, u0, krylov_dtype, residual_df)
+    graph = jvp_graph(F, *point) if exporting() else None
+    vgraph = vjp_graph(F, *point) if exporting() and algo == "cgls" else None
     floor_limited = torch.zeros((), dtype=torch.bool, device=n_res0.device)
     if residual_df is not None and floor_rtol is not None:
         floor0 = _dd.floor_estimate(
@@ -243,14 +247,14 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
         floor_limited = tol_clamped > tol
         tol = tol_clamped
     return _Setup(u0, res0, n_res0, tol, floor_limited, krylov_dtype, out_f64,
-                  outer_res, graph)
+                  outer_res, graph, vgraph)
 
 
 def _static_preconditioners(F, p, s: _Setup, M, N, residual_df):
     """``(M(J₀), N(J₀))`` on the u₀ operator of the precision mode, for
     ``precond_refresh="once"``."""
     J0, _ = _linearize_for_inner(F, p, s.u0, s.res0, s.krylov_dtype,
-                                 residual_df, s.jvp_graph)
+                                 residual_df, s.jvp_graph, s.vjp_graph)
     return (M(J0) if M is not None else None), (N(J0) if N is not None else None)
 
 
@@ -267,7 +271,7 @@ def _newton_step(F, p, s: _Setup, u, res, n_res, rtol, *, space, algo,
     the residual's norm, inner iterations).
     """
     J, b = _linearize_for_inner(F, p, u, res, s.krylov_dtype, residual_df,
-                                s.jvp_graph)
+                                s.jvp_graph, s.vjp_graph)
     A = J if shift is None else ShiftedOperator(J, shift)
     kw = dict(krylov_kwargs)
     kw["space"] = space

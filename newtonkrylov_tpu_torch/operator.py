@@ -28,6 +28,7 @@ import torch
 
 from .exportable import exporting
 from .exportable import jvp_graph as _jvp_graph
+from .exportable import vjp_graph as _vjp_graph
 from .tree import tree_dtype, tree_leaves, tree_map, tree_size
 
 __all__ = [
@@ -61,15 +62,17 @@ class JacobianOperator(LinearOperator):
     (:func:`~newtonkrylov_tpu_torch.exportable.jvp_graph` of ``F`` at
     states and parameters shaped like ``u`` and ``p``) instead: its
     linearization is evaluated at ``u`` here, and each J·v replays only the
-    tangent map, as the linearize graph does.
+    tangent map, as the linearize graph does; ``Jᵀw`` replays ``vjp_graph``
+    (:func:`~newtonkrylov_tpu_torch.exportable.vjp_graph`) the same way.
     """
 
     def __init__(self, F: Callable, u: Any, p: Any = None,
-                 jvp_graph: Callable = None):
+                 jvp_graph: Callable = None, vjp_graph: Callable = None):
         self.F = F
         self.u = u
         self.p = p
         self._vjp = None  # built on first use; most solves never need it
+        self._vjp_graph = vjp_graph
         if exporting():
             # an export replays the linearization as a traced J·v graph
             # (built here unless a driver built it ahead of its loop)
@@ -100,7 +103,15 @@ class JacobianOperator(LinearOperator):
 
     def _get_vjp(self):
         if self._vjp is None:
-            _, self._vjp = torch.func.vjp(lambda uu: self.F(uu, self.p), self.u)
+            if exporting():
+                # evaluated where the first Jᵀw is asked for, ahead of the
+                # Krylov loop that replays it (CGLS forms Aᵀb first)
+                graph = self._vjp_graph or _vjp_graph(self.F, self.u, self.p)
+                lin = graph.linearize(self.u, self.p)
+                self._vjp = lambda w: (lin(w),)
+            else:
+                _, self._vjp = torch.func.vjp(lambda uu: self.F(uu, self.p),
+                                              self.u)
         return self._vjp
 
     def rmv(self, w):

@@ -2,14 +2,15 @@
 
 Counterpart of ``newtonkrylov_tpu/solvers/``: ``gmres`` (the default of the
 Newton driver), ``fgmres``, ``cg`` (plain and pipelined), ``bicgstab`` and
-``cgls``.
+``cgls``.  Each runs its loops through
+:mod:`~newtonkrylov_tpu_torch.exportable`, so every one of them exports
+inside a whole solve (``utils/serving.py``).
 """
 
 from __future__ import annotations
 
 import inspect
 
-from ..exportable import exporting
 from .bicgstab import bicgstab, cgls
 from .cg import cg
 from .common import KrylovResult
@@ -35,10 +36,6 @@ def solve(algo: str, A, b, x0=None, **kwargs) -> KrylovResult:
     except KeyError:
         raise ValueError(
             f"unknown algo {algo!r}; available: {available_algos()}") from None
-    if algo != "cg" and exporting():
-        raise NotImplementedError(
-            f"algo={algo!r} has no exported form (its loop reads the host); "
-            "an exported solve runs algo=\"cg\"")
     params = inspect.signature(fn).parameters
     if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
         return fn(A, b, x0, **kwargs)

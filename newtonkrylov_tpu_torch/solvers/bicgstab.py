@@ -3,9 +3,12 @@
 Counterpart of ``newtonkrylov_tpu/solvers/bicgstab.py``: the reference's
 ``algo = :bicgstab`` and ``:cgls``, which its 1-D Bratu gallery shows
 failing there, with the same recurrences, breakdown guards, space-injected
-reductions and Krylov.jl termination.  Each loop is a Python ``while`` over
-device scalars that reads one boolean back per iteration, as
-:func:`~newtonkrylov_tpu_torch.solvers.cg.cg`.
+reductions and Krylov.jl termination.  Each loop is an
+:func:`~newtonkrylov_tpu_torch.exportable.while_loop` over one body, as
+:func:`~newtonkrylov_tpu_torch.solvers.cg.cg`'s: eagerly a Python loop that
+reads one boolean back per iteration, under ``torch.export`` a
+``while_loop`` (CGLS's ``Jᵀ`` then replays a traced VJP graph,
+:func:`~newtonkrylov_tpu_torch.exportable.vjp_graph`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..exportable import counter, while_loop
 from ..spaces import EuclideanSpace, VectorSpace
 from ..tree import tree_axpy, tree_dtype, tree_size, tree_sub, tree_zeros_like
 from .common import KrylovResult, as_operator, default_tols, nonzero_or_one
@@ -61,12 +65,13 @@ def bicgstab(
     resnorm = space.norm(r)
     eps_abs = atol + rtol * resnorm
     one = torch.ones_like(resnorm)
-    x, p, v = x0, tree_zeros_like(b), tree_zeros_like(b)
-    rho = alpha = omega = one
-    k = 0
     converged = resnorm <= eps_abs
-    breakdown = torch.zeros_like(converged)
-    while k < itmax and not bool(converged | breakdown):
+    limit = counter(resnorm, itmax)
+
+    def cond(k, x, r, p, v, rho, alpha, omega, resnorm, converged, breakdown):
+        return (k < limit) & ~(converged | breakdown)
+
+    def body(k, x, r, p, v, rho, alpha, omega, resnorm, converged, breakdown):
         rho_new = space.dot(rhat, r)
         brk = torch.abs(rho_new) == 0
         beta = (rho_new / nonzero_or_one(rho)) * (alpha / nonzero_or_one(omega))
@@ -80,10 +85,14 @@ def bicgstab(
         x = tree_axpy(omega, s, tree_axpy(alpha, p, x))
         r = tree_axpy(-omega, t, s)
         resnorm = space.norm(r)
-        rho = rho_new
-        k += 1
-        converged = resnorm <= eps_abs
-        breakdown = breakdown | brk | (tt == 0)
+        return (k + 1, x, r, p, v, rho_new, alpha, omega, resnorm,
+                resnorm <= eps_abs, breakdown | brk | (tt == 0))
+
+    k, x, _, _, _, _, _, _, resnorm, converged, breakdown = while_loop(
+        cond, body, (counter(resnorm), x0, r, tree_zeros_like(b),
+                     tree_zeros_like(b), one, one.clone(), one.clone(),
+                     resnorm, converged,
+                     torch.zeros_like(converged)))
     if Nop is not None:
         x = Nop(x)
     return KrylovResult(x, k, resnorm, converged, breakdown)
@@ -119,13 +128,15 @@ def cgls(
     x = tree_zeros_like(s) if x0 is None else x0
     if itmax is None:
         itmax = 2 * tree_size(x) * space.size_multiplier()
-    p = s
     gamma = space.dot(s, s)
     resnorm = space.norm(r)
     eps_abs = atol + rtol * resnorm
-    k = 0
-    converged = resnorm <= eps_abs
-    while k < itmax and not bool(converged):
+    limit = counter(resnorm, itmax)
+
+    def cond(k, x, r, p, gamma, resnorm, converged):
+        return (k < limit) & ~converged
+
+    def body(k, x, r, p, gamma, resnorm, converged):
         q = Aop(p)
         alpha = gamma / nonzero_or_one(space.dot(q, q))
         x = tree_axpy(alpha, p, x)
@@ -133,8 +144,9 @@ def cgls(
         s = At(r)
         gamma_new, rr = space.dot2(s, s, r, r)
         p = tree_axpy(gamma_new / nonzero_or_one(gamma), p, s)
-        gamma = gamma_new
         resnorm = torch.sqrt(rr.real)
-        k += 1
-        converged = resnorm <= eps_abs
+        return k + 1, x, r, p, gamma_new, resnorm, resnorm <= eps_abs
+
+    k, x, _, _, _, resnorm, converged = while_loop(cond, body, (
+        counter(resnorm), x, r, s, gamma, resnorm, resnorm <= eps_abs))
     return KrylovResult(x, k, resnorm, converged, torch.zeros_like(converged))

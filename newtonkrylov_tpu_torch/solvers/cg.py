@@ -3,11 +3,10 @@
 Counterpart of ``newtonkrylov_tpu/solvers/cg.py``: the same recurrences,
 space-injected reductions and Krylov.jl termination
 ``‖r‖ ≤ atol + rtol·‖r₀‖``.  Each loop is a Python ``while`` over device
-scalars that reads back one boolean (pipelined: two, in one transfer) per
-iteration, the only host synchronisation of an iteration.  Under
-``torch.export`` the plain recurrence's loop is a ``while_loop`` over the
-same body (:mod:`~newtonkrylov_tpu_torch.exportable`); the pipelined one
-has no exported form.
+scalars that reads back one boolean per iteration, the only host
+synchronisation of an iteration.  Under ``torch.export`` each loop, plain
+and pipelined, is a ``while_loop`` over the same body
+(:mod:`~newtonkrylov_tpu_torch.exportable`).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..exportable import counter, require_eager, while_loop
+from ..exportable import counter, exporting, while_loop
 from ..spaces import EuclideanSpace, VectorSpace
 from ..tree import tree_axpy, tree_dtype, tree_size, tree_sub, tree_zeros_like
 from .common import KrylovResult, as_operator, default_tols, nonzero_or_one
@@ -58,7 +57,6 @@ def cg(
     if itmax is None:
         itmax = 2 * tree_size(b) * space.size_multiplier()
     if pipeline:
-        require_eager("pipelined CG")
         return _cg_pipelined(Aop, Mop, b, x0, itmax, atol, rtol, space, dtype)
 
     def precond(r):
@@ -122,21 +120,23 @@ def _cg_pipelined(Aop, Mop, b, x0, itmax, atol, rtol, space, dtype):
     rr0 = space.dot(r, r).real
     eps_abs = atol + rtol * torch.sqrt(rr0)
     zero = torch.zeros((), dtype=dtype, device=rr0.device)
-    x = x0
-    p = s = q = z = tree_zeros_like(b)
-    gamma_prev = alpha_prev = torch.ones_like(zero)
-    k = 0
+    zeros = tree_zeros_like(b)
     converged = torch.sqrt(rr0) <= eps_abs
-    breakdown = torch.zeros_like(converged)
-    done = bool(converged)
-    while not done and k < itmax:
+    limit = counter(rr0, itmax)
+
+    def cond(k, first, x, r, u, w, p, s, q, z, gamma_prev, alpha_prev,
+             converged, breakdown):
+        return (k < limit) & ~(converged | breakdown)
+
+    def body(k, first, x, r, u, w, p, s, q, z, gamma_prev, alpha_prev,
+             converged, breakdown):
         gamma, delta, rr = space.dot_stack([(r, u), (w, u), (r, r)])
         rr = rr.real
         m = precond(w)
         n = space.mask_tree(Aop(m))
 
         conv = torch.sqrt(rr) <= eps_abs
-        beta = zero if k == 0 else gamma / nonzero_or_one(gamma_prev)
+        beta = torch.where(first, zero, gamma / nonzero_or_one(gamma_prev))
         denom = delta - beta * gamma / nonzero_or_one(alpha_prev)
         brk = ~conv & (denom == 0)
         alpha = torch.where(conv | brk, zero, gamma / nonzero_or_one(denom))
@@ -149,14 +149,20 @@ def _cg_pipelined(Aop, Mop, b, x0, itmax, atol, rtol, space, dtype):
         r = tree_axpy(-alpha, s, r)
         u = tree_axpy(-alpha, q, u)
         w = tree_axpy(-alpha, z, w)
+        # the body that detects convergence gates its update off and does
+        # not count
+        return (k + (~conv).to(k.dtype), torch.zeros_like(first), x, r, u, w,
+                p, s, q, z, torch.where(conv, gamma_prev, gamma),
+                torch.where(conv, alpha_prev, alpha), conv, breakdown | brk)
 
-        gamma_prev = torch.where(conv, gamma_prev, gamma)
-        alpha_prev = torch.where(conv, alpha_prev, alpha)
-        converged, breakdown = conv, breakdown | brk
-        conv_h, brk_h = torch.stack([conv, breakdown]).tolist()
-        k += 0 if conv_h else 1
-        done = conv_h or brk_h
-
+    k, _, x, r, *_, converged, breakdown = while_loop(cond, body, (
+        torch.zeros((), dtype=torch.int64, device=rr0.device),
+        torch.ones_like(converged), x0, r, u, w, zeros, tree_zeros_like(b),
+        tree_zeros_like(b), tree_zeros_like(b), torch.ones_like(zero),
+        torch.ones_like(zero), converged, torch.zeros_like(converged)))
     resnorm = torch.sqrt(space.dot(r, r).real)
-    return KrylovResult(x, k, resnorm, converged | (resnorm <= eps_abs),
+    # the count is a tensor in the body; eagerly it leaves as an int, as
+    # every solver's does
+    niter = k if exporting() else int(k)
+    return KrylovResult(x, niter, resnorm, converged | (resnorm <= eps_abs),
                         breakdown)

@@ -1,50 +1,56 @@
 """Matrix-free GMRES / FGMRES.
 
 Counterpart of ``newtonkrylov_tpu/solvers/gmres.py``, with its signature,
-defaults and arithmetic:
+defaults, arithmetic and loop structure:
 
 * restarted cycles over a basis allocated once per cycle (``restart + 1``
   rows; ``restart=None`` is full GMRES with basis ``min(itmax, n)``),
   ``itmax = 2n`` and ``⌈itmax / m⌉`` cycles at most;
 * CGS2 orthogonalization by default (one projection and one combination
-  against the active basis per pass, ``reorthogonalize`` adds a pass),
-  ``orth="mgs"`` sequential modified Gram–Schmidt, and ``ortho_block`` the
-  chunked CGS2 projection of the reference;
+  against the basis per pass, rows past the active ones masked;
+  ``reorthogonalize`` adds a pass), ``orth="mgs"`` sequential modified
+  Gram–Schmidt, and ``ortho_block`` the chunked CGS2 projection of the
+  reference, whose trip count follows the active basis;
 * Givens rotations on the Hessenberg columns, with the reference's breakdown
   logic: a dependent column (``dep``, ρ ≤ max(breakdown_tol, 100·eps)·‖col‖)
   is excluded and ends the solve, a happy breakdown ends the cycle;
 * ``flexible=True`` (FGMRES) stores the preconditioned directions Z.
 
-The JAX package runs each cycle in ``lax.while_loop``.  Here the vectors
-stay on the device and the small Hessenberg algebra runs on the host: each
-Arnoldi step reads the new column ``h`` and ``‖w‖`` back together, once,
-then applies the rotations, the ``dep``/happy/converged tests and the
-update of ``g`` in numpy in the Krylov dtype (numpy rounds each float32 or
-float64 multiply and add as the device does).  The tolerance ``rtol`` (a
-device tensor from the Newton driver) is read once per solve with ‖r₀‖,
-each later cycle reads its starting ‖r‖, and the coefficients ``y`` go to
-the device once per cycle.  The basis products (``V[:k+1] @ w``,
-``h @ V[:k+1]``) are ``torch.mv``; they touch only the active rows.
+Each cycle is an :func:`~newtonkrylov_tpu_torch.exportable.while_loop`
+over one Arnoldi step, and the restarts a second one around it, as the JAX
+package's ``lax.while_loop``\\ s.  The carry is fixed-shape device tensors
+in the Krylov dtype: the basis V (and Z), the rotated Hessenberg R
+((m+1) × m), the rotations, g, the step count, ``keff`` (the columns not
+excluded as dependent, masked rather than sliced), ‖r‖ and the
+``done``/``dep`` flags.  Eagerly the loop reads one boolean a step and the
+step count stays a Python int, so the rotations, the MGS sweep, the
+chunked projection and the back-substitution loop over it with no read;
+under ``torch.export`` those loops are nested ``while_loop``\\ s over a
+tensor count, and the loaded program runs the same ops as the live solve.
+
+The small algebra rounds as numpy rounded it when the port kept it on the
+host: each rotation is separate multiplies and adds (no fused op, which
+could contract to an FMA), and the column norm of the breakdown test sums
+in numpy's pairwise order (:func:`_pairwise_sum`).  The back-substitution's
+dot products cannot round as numpy's BLAS did, so f32 counts may differ
+from the host-side version's (ROADMAP Queue 3 item 10).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
+from ..exportable import counter, exporting, fori_loop, while_loop
 from ..spaces import EuclideanSpace, VectorSpace
 from ..tree import (
     tree_add,
     tree_axpy,
     tree_basis_combine,
     tree_dtype,
-    tree_get_row,
-    tree_leaves,
     tree_map,
     tree_project_rows,
-    tree_rows,
     tree_scale,
     tree_set_row,
     tree_size,
@@ -57,154 +63,338 @@ from .common import KrylovResult, as_operator, default_tols
 __all__ = ["gmres", "fgmres"]
 
 
-def _orthogonalize(space, V, w, k, orth, reorthogonalize, ortho_block):
-    """Orthogonalize w against rows 0..k of V: (w, h) with h the (k+1,)
-    device vector of coefficients."""
-    if ortho_block is not None:
-        return _orthogonalize_blocked(space, V, w, k, ortho_block,
-                                      reorthogonalize)
-    npasses = 2 if reorthogonalize else 1
-    if orth == "cgs2":
-        Vk = tree_rows(V, k + 1)
-        h = space.project_rows(Vk, w)
-        w = tree_sub(w, tree_basis_combine(Vk, h))
-        for _ in range(npasses):
-            h2 = space.project_rows(Vk, w)
-            w = tree_sub(w, tree_basis_combine(Vk, h2))
-            h = h + h2
-        return w, h
-    # mgs: h[j] accumulates one coefficient per pass
-    h = None
-    for _ in range(npasses):
-        hs = []
-        for j in range(k + 1):
-            vj = tree_get_row(V, j)
+def _put(vec, i, value, pos):
+    """``vec`` with entry ``i`` set to ``value`` (``pos``: arange over
+    ``vec``'s first axis), without mutating it."""
+    sel = (pos == i).reshape((-1,) + (1,) * (vec.dim() - 1))
+    return torch.where(sel, value, vec)
+
+
+def _at(t, i):
+    """``t[i]`` for an int ``i``, or a 0-d index tensor in an export (which
+    traces ``t[i]`` as a read of the index's value)."""
+    if isinstance(i, int):
+        return t[i]
+    return t.index_select(0, i.reshape(1)).squeeze(0)
+
+
+def _row(V, i):
+    """Row ``i`` (an int or a 0-d tensor) of a stacked basis."""
+    return tree_map(lambda l: _at(l, i), V)
+
+
+def _with_row(V, i, x):
+    """``V`` with row ``i`` set to ``x``: in place eagerly (the basis is
+    allocated once per cycle), an updated copy when exporting (a
+    ``while_loop`` body may not write to its carried state)."""
+    if not exporting():
+        return tree_set_row(V, i, x)
+    return tree_map(lambda l, xl: l.index_copy(0, i.reshape(1), xl.unsqueeze(0)),
+                    V, x)
+
+
+def _pairwise_plan(n: int, device):
+    """Gather indices that sum a length-``n`` vector in numpy's
+    ``pairwise_sum`` order: the ``(leaves, blocks, 8)`` block indices and
+    ``(leaves, 7)`` tail indices of the recursion's leaves (index ``n``
+    names a zero pad), and the recursion as a tree over the leaves.  None
+    for n < 8, which numpy sums left to right."""
+    if n < 8:
+        return None
+    leaves = []
+
+    def split(lo, m):
+        if m <= 128:
+            leaves.append((lo, m))
+            return len(leaves) - 1
+        m2 = m // 2
+        m2 -= m2 % 8
+        return (split(lo, m2), split(lo + m2, m - m2))
+
+    tree = split(0, n)
+    nb = 0  # the most blocks of a leaf (no max(): see gmres)
+    for _, m in leaves:
+        nb = m // 8 if m // 8 > nb else nb
+
+    def indices(first, count, width):  # first + [0, count), padded by n
+        idx = torch.arange(first, first + count, device=device)
+        return torch.cat([idx, torch.full((width - count,), n, device=device)])
+
+    # factory ops only: the plan may be built inside a loop body
+    blocks = torch.stack([indices(lo, m - m % 8, 8 * nb).reshape(nb, 8)
+                          for lo, m in leaves])
+    tails = torch.stack([indices(lo + m - m % 8, m % 8, 7) for lo, m in leaves])
+    return blocks, tails, tree
+
+
+def _pairwise_sum(x, plan):
+    """Σ x of a non-negative vector in numpy's pairwise order (``np.sum``
+    of a contiguous float array): per leaf of ≤ 128 entries eight
+    accumulators over blocks of eight, combined ((r0+r1)+(r2+r3)) +
+    ((r4+r5)+(r6+r7)), then the leftover entries one by one; leaves joined
+    as the recursion halves.  Pads add +0 to a non-negative sum, which
+    changes no bit."""
+    if plan is None:
+        out = x[0]
+        for i in range(1, x.shape[0]):
+            out = out + x[i]
+        return out
+    blocks, tails, tree = plan
+    xp = torch.cat([x, x.new_zeros(1)])
+    b = xp[blocks]
+    r = b[:, 0]
+    for j in range(1, b.shape[1]):
+        r = r + b[:, j]
+    r = r[:, 0::2] + r[:, 1::2]
+    r = r[:, 0::2] + r[:, 1::2]
+    res = r[:, 0] + r[:, 1]
+    t = xp[tails]
+    for j in range(7):
+        res = res + t[:, j]
+
+    def join(node):
+        if isinstance(node, int):
+            return res[node]
+        return join(node[0]) + join(node[1])
+
+    return join(tree)
+
+
+class _Cycle:
+    """One restart cycle's invariants: the operators, the options and the
+    constants its body reads (made ahead of any loop: a ``while_loop``
+    body may not create a tensor constant)."""
+
+    def __init__(self, Aop, Mop, Nop, space, m, m_alloc, orth,
+                 reorthogonalize, flexible, breakdown_tol, ortho_block,
+                 eps_abs, dtype, device):
+        self.Aop, self.Mop, self.Nop, self.space = Aop, Mop, Nop, space
+        # sizes are read back from tensor shapes (``m``, ``m_alloc``): an
+        # export traces an int attribute read in a loop body as an input
+        self.orth, self.reorthogonalize = orth, reorthogonalize
+        self.flexible, self.ortho_block = flexible, ortho_block
+        self.eps_abs = eps_abs
+
+        def const(v):
+            return torch.full((), v, dtype=dtype, device=device)
+
+        eps = torch.finfo(dtype).eps
+        self.one, self.zero = const(1.0), const(0.0)
+        # rounded to the dtype as numpy's dt.type(...) rounded them
+        self.tol_dep = torch.maximum(const(breakdown_tol), const(100.0 * eps))
+        self.btol, self.floor = const(breakdown_tol), const(1e-30)
+        self.rows = torch.arange(m_alloc, device=device)  # basis rows
+        self.pos = torch.arange(m + 1, device=device)     # entries of h, g
+        self.cols = torch.arange(m, device=device)        # columns of R
+        self.sum_plan = _pairwise_plan(m + 1, device)
+        if ortho_block is not None:
+            self.offsets = torch.arange(ortho_block, device=device)
+            self.chunk_of = self.rows // ortho_block  # each row's chunk
+
+    @property
+    def m(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def m_alloc(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def npasses(self) -> int:
+        return 2 if self.reorthogonalize else 1
+
+    # -- orthogonalization ------------------------------------------------
+    def orthogonalize(self, V, w, k):
+        """w orthogonalized against rows 0..k of V, and h (m + 1 entries,
+        zero past k)."""
+        if self.ortho_block is not None:
+            return self._blocked(V, w, k)
+        space = self.space
+        if self.orth == "cgs2":
+            mask = (self.rows <= k).to(tree_dtype(w))
+            h = space.project_rows(V, w) * mask
+            w = tree_sub(w, tree_basis_combine(V, h))
+            for _ in range(self.npasses):
+                h2 = space.project_rows(V, w) * mask
+                w = tree_sub(w, tree_basis_combine(V, h2))
+                h = h + h2
+            return w, h[:self.pos.shape[0]]
+
+        def sweep(j, w, h):  # mgs: h[j] accumulates one coefficient a pass
+            vj = _row(V, j)
             hj = space.dot(vj, w)
-            w = tree_axpy(-hj, vj, w)
-            hs.append(hj)
-        h = torch.stack(hs) if h is None else h + torch.stack(hs)
-    return w, h
+            return tree_axpy(-hj, vj, w), _put(h, j, _at(h, j) + hj, self.pos)
+
+        h = torch.zeros_like(self.pos, dtype=tree_dtype(w))
+        for _ in range(self.npasses):
+            w, h = fori_loop(0, k + 1, sweep, (w, h), like=self.pos)
+        return w, h
+
+    def _blocked(self, V, w, k):
+        """CGS2 over the ⌈(k+1)/block⌉ basis chunks that hold active rows
+        (the reference's ``_orthogonalize_blocked``): per-chunk projections
+        gathered into one vector, completed by ``space.reduce_rows`` and
+        masked to rows ≤ k; the combination summed chunk by chunk."""
+        offsets, space = self.offsets, self.space
+        nch = k // offsets.shape[0] + 1
+        # the nested loops read the block size from ``offsets`` themselves:
+        # an int they closed over would become an input of their loop
+
+        def chunk(i):
+            block = offsets.shape[0]
+            if not exporting():
+                return tree_map(lambda l: l[i * block:(i + 1) * block], V)
+            return tree_map(lambda l: l.index_select(0, i * block + offsets), V)
+
+        def project(w_):
+            mw = space.mask_tree(w_)
+
+            def part(i, h):
+                hc = tree_project_rows(chunk(i), mw)
+                reps = self.rows.shape[0] // offsets.shape[0]
+                return (torch.where(self.chunk_of == i, hc.repeat(reps), h),)
+
+            (h,) = fori_loop(0, nch, part, (torch.zeros_like(
+                self.rows, dtype=tree_dtype(w_)),), like=self.rows)
+            return space.reduce_rows(h) * (self.rows <= k)
+
+        def combine(h):
+            def part(i, acc):
+                hc = h.index_select(0, i * offsets.shape[0] + offsets)
+                return (tree_add(acc, tree_basis_combine(chunk(i), hc)),)
+
+            return fori_loop(0, nch, part, (tree_zeros_like(w),),
+                             like=self.rows)[0]
+
+        h = project(w)
+        w = tree_sub(w, combine(h))
+        for _ in range(self.npasses):
+            h2 = project(w)
+            w = tree_sub(w, combine(h2))
+            h = h + h2
+        return w, h[:self.pos.shape[0]]
+
+    # -- the rotations ----------------------------------------------------
+    def rotate(self, G, h, k):
+        """The stored rotations 0..k-1 applied to column h, in order:
+        ``(h_j, h_j+1) ← (c h_j + s h_j+1, −s h_j + c h_j+1)``.  ``G[j]`` is
+        ``[[c, −s], [s, c]]``.  Rotation j reads h_j+1 before any rotation
+        has touched it, so the products ``h_j+1·(s, c)`` are formed for
+        every j at once; the chain through t_j = h_j (as rotated so far)
+        is one multiply of a pair and one add a rotation."""
+        if not exporting():
+            hs = h[1:k + 1, None] * G[:k, 1]
+            outs, t = [], h[0]
+            for j in range(k):
+                new = t * G[j, 0] + hs[j]
+                outs.append(new[0])
+                t = new[1]
+            return torch.cat([torch.stack(outs + [t]), h[k + 1:]])
+
+        hs = h[1:, None] * G[:, 1]
+
+        def turn(j, t, out):
+            new = t * _at(G, j)[0] + _at(hs, j)
+            return new[1], _put(out, j, new[0], self.pos)
+
+        t, out = fori_loop(0, k, turn, (h[0], h), like=self.pos)
+        return _put(out, k, t, self.pos)
+
+    # -- one Arnoldi step -------------------------------------------------
+    def step(self, k, keff, V, Z, R, G, g, resnorm, done, dep_any):
+        one, zero, pos = self.one, self.zero, self.pos
+        vk = _row(V, k)
+        z = self.Nop(vk) if self.Nop is not None else vk
+        if self.flexible:
+            Z = _with_row(Z, k, z)
+        w = self.Aop(z)
+        if self.Mop is not None:
+            w = self.Mop(w)
+        w, h = self.orthogonalize(V, w, k)
+        hk1 = self.space.norm(w)
+
+        h = self.rotate(G, h, k)
+        hk = _at(h, k)
+        rho = torch.sqrt(hk * hk + hk1 * hk1)
+        # ρ ≈ 0 relative to the column: a dependent direction (serious
+        # breakdown) — excluded, and the solve stops
+        col_norm = torch.sqrt(_pairwise_sum(h * h, self.sum_plan) + hk1 * hk1)
+        dep = rho <= self.tol_dep * torch.maximum(col_norm, self.floor)
+        ident = dep | (rho == 0)
+        safe_rho = torch.where(rho > 0, rho, one)
+        c = torch.where(ident, one, hk / safe_rho)
+        s = torch.where(ident, zero, hk1 / safe_rho)
+        h = _put(h, k, torch.where(dep, hk, rho), pos)
+        gk = _at(g, k)
+        g_new = _put(_put(g, k, c * gk, pos), k + 1, -s * gk, pos)
+        g = torch.where(dep, g, g_new)
+        resnorm = torch.where(dep, resnorm, torch.abs(_at(g, k + 1)))
+        keff = torch.where(dep, keff, k + 1)
+        G = _put(G, k, torch.stack([torch.stack([c, -s]),
+                                    torch.stack([s, c])]), self.cols)
+        R = torch.where(self.cols == k, h[:, None], R)
+        happy = ~dep & (hk1 <= self.btol * torch.maximum(rho, one))
+        done = (resnorm <= self.eps_abs) | happy | dep
+        safe_h = torch.where(hk1 > 0, hk1, one)
+        V = _with_row(V, k + 1, tree_scale(one / safe_h, w))
+        return k + 1, keff, V, Z, R, G, g, resnorm, done, dep_any | dep
+
+    def back_substitute(self, R, g, k, keff):
+        """y with R y = g on rows < keff (rows from keff on are zero), by a
+        loop down from row k − 1 with the inactive rows masked."""
+        m = self.m
+
+        def row(i_rev, y):
+            i = k - 1 - i_rev
+            Ri = _at(R, i)
+            num = _at(g, i) - torch.dot(Ri, y)
+            active = i < keff
+            rii = _at(Ri, i)
+            denom = torch.where(active & (rii != 0), rii, self.one)
+            return (_put(y, i, torch.where(active, num / denom, self.zero),
+                         self.cols),)
+
+        y = torch.zeros(m, dtype=R.dtype, device=R.device)
+        return fori_loop(0, k, row, (y,), like=self.cols)[0]
+
+    def run(self, x, r, beta):
+        """One cycle from residual r of norm beta (a 0-d tensor): (x_new,
+        steps, resnorm, dep)."""
+        m, one = self.m, self.one
+        dtype = beta.dtype
+        V = tree_stack_like(r, self.m_alloc)
+        V = _with_row(V, counter(beta), tree_scale(
+            one / torch.where(beta > 0, beta, one), r))
+        # the directions N v of FGMRES; none to carry otherwise
+        Z = tree_stack_like(r, m) if self.flexible else ()
+        R = torch.zeros((m + 1, m), dtype=dtype, device=beta.device)
+        G = torch.zeros((m, 2, 2), dtype=dtype, device=beta.device)
+        g = _put(torch.zeros(m + 1, dtype=dtype, device=beta.device), 0, beta,
+                 self.pos)
+        limit = counter(beta, m)
+        done = beta <= self.eps_abs
+        carry = (counter(beta), counter(beta), V, Z, R, G, g, beta, done,
+                 torch.zeros_like(done))
+
+        def cond(k, keff, V, Z, R, G, g, resnorm, done, dep):
+            return (k < limit) & ~done
+
+        k, keff, V, Z, R, G, g, resnorm, _, dep = while_loop(cond, self.step,
+                                                             carry)
+        y = self.back_substitute(R, g, k, keff)
+        if self.flexible:
+            dx = tree_basis_combine(Z, y)
+        else:
+            coeffs = torch.cat([y, y.new_zeros(self.m_alloc - m)])
+            dx = tree_basis_combine(V, coeffs)
+            if self.Nop is not None:
+                dx = self.Nop(dx)
+        return tree_add(x, dx), k, resnorm, dep
 
 
 def _pad_rows(m: int, block: int) -> int:
     """Basis row allocation rounded up to a whole number of blocks."""
     return -(-(m + 1) // block) * block
-
-
-def _orthogonalize_blocked(space, V, w, k, block, reorthogonalize):
-    """CGS2 over the ⌈(k+1)/block⌉ basis chunks that hold active rows, the
-    reference's ``_orthogonalize_blocked``: per-chunk projections
-    accumulated into one vector, completed by ``space.reduce_rows`` and
-    masked to rows ≤ k; the combination summed chunk by chunk."""
-    nch = k // block + 1
-    chunks = [tree_map(lambda l, i=i: l[i * block:(i + 1) * block], V)
-              for i in range(nch)]
-
-    def project(w_):
-        mw = space.mask_tree(w_)
-        h = space.reduce_rows(torch.cat([tree_project_rows(c, mw) for c in chunks]))
-        return h * (torch.arange(h.shape[0], device=h.device) <= k)
-
-    def combine(h):
-        acc = tree_zeros_like(w)
-        for i, c in enumerate(chunks):
-            acc = tree_add(acc, tree_basis_combine(c, h[i * block:(i + 1) * block]))
-        return acc
-
-    h = project(w)
-    w = tree_sub(w, combine(h))
-    for _ in range(2 if reorthogonalize else 1):
-        h2 = project(w)
-        w = tree_sub(w, combine(h2))
-        h = h + h2
-    return w, h[:k + 1]
-
-
-def _read(*scalars) -> np.ndarray:
-    """Device scalars and vectors to the host in one transfer."""
-    return torch.cat([s.reshape(-1) for s in scalars]).cpu().numpy()
-
-
-def _gmres_cycle(Aop, Mop, Nop, x, r, beta, space, m, m_alloc, orth,
-                 reorthogonalize, eps_abs, flexible, breakdown_tol,
-                 ortho_block, dt):
-    """One restart cycle from residual r of norm beta (a host scalar of the
-    Krylov dtype ``dt``).  Returns (x_new, steps, resnorm, dep)."""
-    one = dt.type(1)
-    V = tree_stack_like(r, m_alloc)
-    Z = tree_stack_like(r, m) if flexible else None
-    tree_set_row(V, 0, tree_scale(float(one / (beta if beta > 0 else one)), r))
-
-    R = np.zeros((m + 1, m), dt)
-    cs = np.zeros(m, dt)
-    sn = np.zeros(m, dt)
-    g = np.zeros(m + 1, dt)
-    g[0] = beta
-    tiny = dt.type(100.0 * np.finfo(dt).eps)
-    tol_dep = np.maximum(dt.type(breakdown_tol), tiny)
-    btol = dt.type(breakdown_tol)
-
-    k = keff = 0
-    resnorm, done, dep_any = beta, bool(beta <= eps_abs), False
-    while k < m and not done:
-        vk = tree_get_row(V, k)
-        z = Nop(vk) if Nop is not None else vk
-        if flexible:
-            tree_set_row(Z, k, z)
-        w = Aop(z)
-        if Mop is not None:
-            w = Mop(w)
-        w, h_dev = _orthogonalize(space, V, w, k, orth, reorthogonalize,
-                                  ortho_block)
-        col = _read(h_dev, space.norm(w))  # the step's one host read
-        h = np.zeros(m + 1, dt)
-        h[:k + 1] = col[:k + 1]
-        hk1 = col[k + 1]
-
-        for j in range(k):  # the stored rotations
-            hj, hj1 = h[j], h[j + 1]
-            h[j] = cs[j] * hj + sn[j] * hj1
-            h[j + 1] = -sn[j] * hj + cs[j] * hj1
-        hk = h[k]
-        rho = np.sqrt(hk * hk + hk1 * hk1)
-        # ρ ≈ 0 relative to the column: a dependent direction (serious
-        # breakdown) — excluded, and the solve stops
-        col_norm = np.sqrt(np.sum(h * h) + hk1 * hk1)
-        dep = bool(rho <= tol_dep * np.maximum(col_norm, dt.type(1e-30)))
-        if dep or rho == 0:
-            c_new, s_new = one, dt.type(0)
-        else:
-            c_new, s_new = hk / rho, hk1 / rho
-        if not dep:
-            h[k] = rho
-            gk = g[k]
-            g[k], g[k + 1] = c_new * gk, -s_new * gk
-            resnorm = abs(g[k + 1])
-            keff = k + 1
-        cs[k], sn[k] = c_new, s_new
-        R[:, k] = h
-        happy = not dep and bool(hk1 <= btol * np.maximum(rho, one))
-        done = bool(resnorm <= eps_abs) or happy or dep
-        dep_any = dep_any or dep
-        k += 1
-        if not done and k < m:
-            tree_set_row(V, k, tree_scale(float(one / (hk1 if hk1 > 0 else one)), w))
-
-    if keff == 0:
-        return x, k, resnorm, dep_any
-    # back-substitution on the rotated (upper-triangular) system R y = g
-    y = np.zeros(keff, dt)
-    for i in range(keff - 1, -1, -1):
-        num = g[i] - R[i, :keff] @ y
-        y[i] = num / (R[i, i] if R[i, i] != 0 else one)
-    yk = torch.from_numpy(y).to(tree_leaves(x)[0].device)
-    if flexible:
-        dx = tree_basis_combine(tree_rows(Z, keff), yk)
-    else:
-        dx = tree_basis_combine(tree_rows(V, keff), yk)
-        if Nop is not None:
-            dx = Nop(dx)
-    return tree_add(x, dx), k, resnorm, dep_any
 
 
 def gmres(
@@ -234,6 +424,7 @@ def gmres(
     and ``N`` (right) apply preconditioner inverses; ``flexible=True``
     lets ``N`` change between steps.  ``ortho_block=C`` runs the CGS2
     projection over C-row basis chunks (requires ``orth="cgs2"``).
+    ``niter`` is a Python int eagerly, a 0-d tensor in an export.
     """
     Aop = as_operator(A)
     Mop = as_operator(M) if M is not None else None
@@ -250,14 +441,17 @@ def gmres(
     if x0 is None:
         x0 = tree_zeros_like(b)
     dtype = tree_dtype(b)
-    dt = torch.empty((), dtype=dtype).numpy().dtype
     atol, rtol = default_tols(dtype, atol, rtol)
 
+    # no min/max here: inside an exported loop body the sizes are symbolic,
+    # and Dynamo's max(1, s) returned 1 (conditional expressions trace)
     n = tree_size(b)
     if itmax is None:
         itmax = 2 * n * space.size_multiplier()
-    m = min(restart, n) if restart is not None else min(itmax, n)
-    max_cycles = max(1, -(-itmax // m))
+    cap = restart if restart is not None else itmax
+    m = cap if cap < n else n
+    max_cycles = -(-itmax // m)
+    max_cycles = max_cycles if max_cycles > 1 else 1
     m_alloc = _pad_rows(m, ortho_block) if ortho_block is not None else m + 1
 
     def residual(x):
@@ -267,33 +461,43 @@ def gmres(
         return space.mask_tree(r)
 
     r = residual(x0)
-    beta_dev = space.norm(r)
-    beta0, rtol_h = _read(beta_dev, torch.as_tensor(rtol, dtype=dtype,
-                                                    device=beta_dev.device))
-    eps_abs = dt.type(atol) + rtol_h * beta0
+    beta0 = space.norm(r)
+    device = beta0.device
+    def scalar(v):  # a factory op, not a constant: this may run in a body
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype)
+        return torch.full((), v, dtype=dtype, device=device)
 
-    x, beta = x0, beta0
-    total = cycle = 0
-    resnorm, converged, breakdown = beta0, bool(beta0 <= eps_abs), False
-    while not converged and total < itmax and cycle < max_cycles:
-        if cycle > 0:
-            r = residual(x)
-            (beta,) = _read(space.norm(r))
-        x, k, resnorm, dep = _gmres_cycle(
-            Aop, Mop, Nop, x, r, beta, space, m, m_alloc, orth,
-            reorthogonalize, eps_abs, flexible, breakdown_tol, ortho_block, dt)
-        total += k
-        converged = bool(resnorm <= eps_abs)
-        breakdown = breakdown or dep
-        # a dependent direction ends the solve: restarting would rebuild
-        # the same exhausted space
-        cycle = max_cycles if dep else cycle + 1
+    eps_abs = scalar(atol) + scalar(rtol) * beta0
+    cyc = _Cycle(Aop, Mop, Nop, space, m, m_alloc, orth, reorthogonalize,
+                 flexible, breakdown_tol, ortho_block, eps_abs, dtype, device)
+    itmax_c, cycles_c = counter(beta0, itmax), counter(beta0, max_cycles)
 
-    device = beta_dev.device
-    return KrylovResult(
-        x, total, torch.tensor(resnorm, dtype=dtype, device=device),
-        torch.tensor(converged, device=device),
-        torch.tensor(breakdown, device=device))
+    def outcome(x, total, k, resnorm, breakdown, dep, cycle):
+        # a dependent direction ends the solve (``breakdown`` stops the
+        # loop): restarting would rebuild the same exhausted space
+        return (x, total + k, resnorm, resnorm <= eps_abs, breakdown | dep,
+                cycle + 1)
+
+    converged = beta0 <= eps_abs
+    state = (x0, counter(beta0), beta0, converged,
+             torch.zeros_like(converged), counter(beta0))
+    # the first cycle starts from r₀; an eager solve reads the test the
+    # loop would read first
+    if itmax > 0 and (exporting() or not bool(converged)):
+        x, k, resnorm, dep = cyc.run(x0, r, beta0)
+        state = outcome(x, state[1], k, resnorm, state[4], dep, state[5])
+
+    def cond(x, total, resnorm, converged, breakdown, cycle):
+        return ~(converged | breakdown) & (total < itmax_c) & (cycle < cycles_c)
+
+    def body(x, total, resnorm, converged, breakdown, cycle):
+        r = residual(x)
+        x_new, k, resnorm, dep = cyc.run(x, r, space.norm(r))
+        return outcome(x_new, total, k, resnorm, breakdown, dep, cycle)
+
+    x, total, resnorm, converged, breakdown, _ = while_loop(cond, body, state)
+    return KrylovResult(x, total, resnorm, converged, breakdown)
 
 
 def fgmres(A, b, x0=None, **kwargs) -> KrylovResult:

@@ -256,9 +256,18 @@ def integrate(
         history=_stack(hist) if save_history else None,
         ts=torch.tensor(ts, dtype=torch.float64, device=device),
         n_failed=n_failed,
-        outer_iterations=torch.tensor(outers, dtype=torch.int64, device=device),
-        inner_iterations=torch.tensor(inners, dtype=torch.int64, device=device),
+        outer_iterations=_counts(outers, device),
+        inner_iterations=_counts(inners, device),
     )
+
+
+def _counts(counts, device):
+    """Per-step counts as one int64 tensor: Python ints eagerly, 0-d
+    tensors in an export (``torch.tensor`` cannot read those)."""
+    if not counts:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    return torch.stack([torch.as_tensor(c, dtype=torch.int64, device=device)
+                        for c in counts])
 
 
 def integrate_scan(
@@ -310,6 +319,6 @@ def integrate_scan(
         history=_stack(saved) if saved else None,
         ts=t0 + dt * steps,
         n_failed=torch.logical_not(torch.stack(solved)).sum(),
-        outer_iterations=torch.tensor(outers, dtype=torch.int64, device=device),
-        inner_iterations=torch.tensor(inners, dtype=torch.int64, device=device),
+        outer_iterations=_counts(outers, device),
+        inner_iterations=_counts(inners, device),
     )

@@ -6,13 +6,22 @@ program, written to disk, and run later in another process without the
 Python that configured it.  The whole Newton–Krylov loop is inside the
 program: under export the drivers' loops are ``while_loop``\\ s and the
 residual's J·v a traced graph (:mod:`~newtonkrylov_tpu_torch.exportable`).
-What exports: :func:`~newtonkrylov_tpu_torch.newton.newton_krylov_jit` and
-:func:`~newtonkrylov_tpu_torch.continuation.pseudo_transient` with
-``algo="cg"`` (plain CG), the precision modes, the df32 acceptance and its
-floor estimate, and preconditioners built once (``precond_refresh="once"``)
-whose apply is tensor ops, such as ``fft_poisson``.  A path whose loop
-reads the host (GMRES, BiCGStab, pipelined CG, :func:`newton_krylov`)
-raises under export; nothing falls back.
+What exports: :func:`~newtonkrylov_tpu_torch.newton.newton_krylov_jit`,
+:func:`~newtonkrylov_tpu_torch.continuation.pseudo_transient` and
+:func:`~newtonkrylov_tpu_torch.timestep.integrate_scan` with every Krylov
+method the JAX package exports — the drivers' default GMRES (restarted or
+full, CGS2, MGS, ``reorthogonalize``, ``ortho_block``), FGMRES, plain and
+pipelined CG, BiCGStab and CGLS (its ``Jᵀ`` a traced VJP graph) — the
+precision modes, the df32 acceptance and its floor estimate, and
+preconditioners built once (``precond_refresh="once"``) whose apply is
+tensor ops, such as ``fft_poisson``; a factory rebuilt inside the loop
+(``pseudo_transient``'s, every step) must make no tensor from host data.
+Each Krylov loop is a ``while_loop`` over its live body (GMRES: the
+Arnoldi step, with the rotations, the MGS sweep, the chunked projection
+and the back-substitution as nested ``while_loop``\ s over the step
+count), so the loaded program equals the live solve bit for bit.  The
+host-stepped :func:`~newtonkrylov_tpu_torch.newton.newton_krylov` raises
+under export; nothing falls back.
 
 The program is the eager graph of ATen ops and the port's custom ops (the
 hand-written kernels K1 and K2 stay ops, not their plain versions): no

@@ -247,9 +247,9 @@ def test_cheb_pcg_solve_on_card(cuda_device):
 ], ids=["mul-x8-carry", "roll-lane-x4-carry", "stencil-hoisted-pingpong-u2"])
 def test_chain_call_matches_plain(cuda_device, step, kw):
     """K6 on three probe variants (a register-carried multiply chain, a
-    carried column-shift chain through memory, the hoisted stencil in
-    ping-pong), k = 1, 7, 8 on a 64² aligned f32 array: bitwise equal to
-    its plain version, one launch per call."""
+    carried column-shift chain through the on-chip copy, the hoisted
+    stencil in ping-pong), k = 1, 7, 8 on a 64² aligned f32 array: bitwise
+    equal to its plain version, one launch counted per call."""
     n = 64
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     v, w = (_rand(n, cuda_device, torch.float32, gen, absval=a) for a in (False, True))
@@ -771,6 +771,52 @@ def test_sharded_flagship_world1_nccl(cuda_device, tmp_path):
     applies = info.stats.inner_iterations + info.stats.outer_iterations
     assert counts["reduce_scatter"] == 4 * applies
     assert counts["all_reduce"] > 0 and counts["p2p"] == 0
+
+
+@pytest.mark.parametrize("step", kp.STEPS)
+def test_chain_call_pass_boundaries(cuda_device, step):
+    """K6 runs in passes of at most 16 steps (csrc/chain_probe.cu on
+    csrc/tiled.cuh): carried and ping-pong at k = 15, 16, 17, 33 and 34,
+    ping-pong unrolled 2 at k = 36 and 4 at k = 40, on the 64² layout (a
+    72 × 128 array, which a tile's halo wraps more than once), each bitwise
+    equal to the plain version."""
+    n = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    v, w = (_rand(n, cuda_device, torch.float32, gen, absval=a) for a in (False, True))
+    runs = [(k, {"pingpong": pp}) for pp in (False, True)
+            for k in (15, 16, 17, 33, 34)]
+    runs += [(36, {"pingpong": True, "unroll": 2}),
+             (40, {"pingpong": True, "unroll": 4})]
+    for k, kw in runs:
+        assert _bitwise(kp.chain_call(step, v, w, k, **kw),
+                        kp.chain_call_xla(step, v, w, k, **kw)), (k, kw)
+
+
+def test_exported_gmres_flagship_on_card(cuda_device, tmp_path):
+    """The flagship at 64² with the driver's default ``algo="gmres"``
+    exported whole, saved, loaded and called on the card: solved, the live
+    solve's counts, and its state bit for bit."""
+    from newtonkrylov_tpu_torch.utils import serving
+
+    n = 64
+    p = tb.default_config(n, lam=5.0)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device).double()
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled, u, p, tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return u, info.stats.outer_iterations, info.stats.inner_iterations, info.solved
+
+    live = fn(u0)
+    path = serving.save_exported(serving.export_solver(fn, (u0,)),
+                                 str(tmp_path / "gmres.pt2"))
+    u, outer, inner, solved = serving.load_exported(path).call(u0)
+    assert bool(solved) and bool(live[3])
+    assert (int(outer), int(inner)) == (live[1], live[2])
+    assert torch.equal(u, live[0])
 
 
 def test_exported_flagship_on_card(cuda_device, tmp_path):

@@ -284,3 +284,129 @@ def test_dispatch_menu():
     # cgls needs the adjoint: an operator with rmv, or At=
     with pytest.raises(ValueError, match="At="):
         tsolvers.solve("cgls", ot, bt)
+
+
+def _export_gmres(fn, b):
+    """``fn(b)`` exported (``utils/serving.py``) and called."""
+    from newtonkrylov_tpu_torch.utils import serving
+
+    return serving.export_solver(fn, (b,)).module()(b)
+
+
+EXPORT_CASES = {
+    "restarted": dict(restart=7, rtol=1e-10),
+    "reorthogonalize": dict(restart=15, rtol=1e-10, reorthogonalize=True),
+    "mgs": dict(restart=10, rtol=1e-10, orth="mgs"),
+    "ortho_block": dict(restart=None, itmax=60, rtol=1e-12, ortho_block=7),
+    "left_right": dict(restart=10, rtol=1e-10, M="jacobi", N="jacobi"),
+    "flexible": dict(restart=10, rtol=1e-10, N="jacobi", flexible=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPORT_CASES))
+def test_export_matches_live_bitwise(case):
+    """GMRES exported whole (its cycles and restarts ``while_loop``\\ s, the
+    rotations, MGS sweep, chunked projection and back-substitution nested
+    loops over a tensor count) equals the live solve bit for bit: solution,
+    step count, residual and flags."""
+    kw = dict(EXPORT_CASES[case])
+    A, b, x_true = random_system(30, seed=21)
+    At = torch.tensor(A, dtype=F64)
+    D = torch.tensor(1.0 / np.diag(A), dtype=F64)
+    for side in ("M", "N"):
+        if kw.get(side) == "jacobi":
+            kw[side] = lambda v: D * v
+
+    def fn(bb):
+        r = tsolvers.gmres(lambda v: At @ v, bb, **kw)
+        return r.x, r.niter, r.residual, r.converged, r.breakdown
+
+    bt = torch.tensor(b, dtype=F64)
+    live = fn(bt)
+    out = _export_gmres(fn, bt)
+    assert isinstance(live[1], int) and live[1] == int(out[1])
+    for a, e in zip((live[0], *live[2:]), (out[0], *out[2:])):
+        assert torch.equal(torch.as_tensor(a), e), case
+    assert bool(live[3])
+    np.testing.assert_allclose(live[0].numpy(), x_true, rtol=1e-6)
+
+
+def test_export_singular_breakdown_and_zero_rhs():
+    """The dependent-column exclusion (``keff`` masked in the carry) and the
+    zero right-hand side export as they run live."""
+    A = torch.tensor(np.diag([1.0, 2.0, 3.0, 0.0, 5.0, 6.0]), dtype=F64)
+
+    def fn(bb):
+        r = tsolvers.gmres(lambda v: A @ v, bb, restart=6, rtol=1e-12, atol=0.0)
+        return r.x, r.niter, r.residual, r.converged, r.breakdown
+
+    for b in (torch.ones(6, dtype=F64), torch.zeros(6, dtype=F64)):
+        live = fn(b)
+        out = _export_gmres(fn, b)
+        assert live[1] == int(out[1])
+        for a, e in zip((live[0], *live[2:]), (out[0], *out[2:])):
+            assert torch.equal(torch.as_tensor(a), e)
+    assert bool(out[4]) is False and int(out[1]) == 0  # the zero rhs
+    live = fn(torch.ones(6, dtype=F64))
+    assert bool(live[4]) and not bool(live[3])
+
+
+def test_eager_reads_one_boolean_per_step(monkeypatch):
+    """Eagerly the Arnoldi loop reads one boolean per step and nothing
+    else: no ``.item()``, ``.cpu()``, ``.numpy()`` or ``.tolist()``, and
+    one ``bool`` per step, per restart test and per solve."""
+    reads = {"bool": 0, "other": 0}
+    real_bool = torch.Tensor.__bool__
+
+    def counted_bool(self):
+        reads["bool"] += 1
+        return real_bool(self)
+
+    def refuse(name):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, **k):
+            reads["other"] += 1
+            return real(self, *a, **k)
+        return counted
+
+    A, b, _ = random_system(40, seed=3)
+    At, bt = torch.tensor(A, dtype=F64), torch.tensor(b, dtype=F64)
+    monkeypatch.setattr(torch.Tensor, "__bool__", counted_bool)
+    for name in ("item", "cpu", "numpy", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, refuse(name))
+    res = tsolvers.gmres(lambda v: At @ v, bt, restart=10, rtol=1e-10)
+    monkeypatch.undo()
+    cycles = -(-res.niter // 10)
+    assert reads["other"] == 0
+    # one per step, one loop exit per cycle, one restart test per cycle,
+    # the first cycle's test
+    assert reads["bool"] <= res.niter + 2 * cycles + 1, (reads, res.niter)
+
+
+def test_f32_refined_convdiff_counts_queue3_item10():
+    """The refined convection–diffusion solve (f32 Krylov, df32
+    acceptance, full GMRES, DST) at n = 32 and 64 takes 5 / 59 and 5 / 117
+    (ROADMAP Queue 3 item 10; the JAX package takes 5 / 59 and 5 / 110).
+    With the Hessenberg algebra on the host the port took 5 / 58 and
+    5 / 116: its back-substitution went through numpy's BLAS dot, whose
+    fused, vectorized sum no device op reproduces."""
+    from newtonkrylov_tpu.problems import convdiff2d as jc
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import convdiff2d as tc
+    from newtonkrylov_tpu_torch.utils import convert
+
+    for n, counts in ((32, (5, 59)), (64, (5, 117))):
+        pj = jc.default_config(n, dtype=jnp.float64)
+        p = tc.Params(dx=float(pj.dx), c=float(pj.c),
+                      b=convert.state(np.asarray(pj.b), device="cpu"))
+        u0 = convert.state(np.asarray(jc.initial_guess(n, jnp.float64)),
+                           device="cpu")
+        _, info = nkt.newton_krylov_jit(
+            tc.residual_scaled, u0, p, krylov_dtype=torch.float32,
+            residual_df=tc.residual_scaled_df, M=fft_poisson(), algo="gmres",
+            tol_rel=1e-8, forcing=None, max_niter=25,
+            krylov_kwargs={"restart": None, "itmax": 150})
+        assert bool(info.solved)
+        assert (info.stats.outer_iterations,
+                info.stats.inner_iterations) == counts, n

@@ -172,7 +172,7 @@ def test_cost_model_arithmetic(monkeypatch, capsys):
     model = tprobe.cost_model(timings)
     assert model["per_mul_us"] == 0.5
     assert model["row_shift_us"] == 1.0
-    assert model["copy_sync_stencil_us"] == 5.0
-    assert model["copy_sync_row_us"] == 2.0
-    assert model["memory_step_us"][2] == 4.0
+    assert model["copy_barrier_stencil_us"] == 5.0
+    assert model["copy_barrier_row_us"] == 2.0
+    assert model["pass_step_us"][2] == 4.0
     assert "--- cost model ---" in capsys.readouterr().out

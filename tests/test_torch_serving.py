@@ -142,13 +142,12 @@ def test_export_roundtrip_production_config(tmp_path):
 
 
 def test_export_roundtrip_ptc(tmp_path):
-    """Ψtc on arctan from x₀ = 3 (test_export_roundtrip_ptc) with CG, the
-    Krylov method an export runs: bit for bit against the live solve,
-    within 1e-12 of the JAX package's exported Ψtc with equal counts, and
-    at the root."""
+    """Ψtc on arctan from x₀ = 3 (test_export_roundtrip_ptc) with the
+    driver's default Krylov method, GMRES, on both sides: bit for bit
+    against the live solve, within 1e-12 of the JAX package's exported Ψtc
+    with equal counts, and at the root."""
     def fn(x):
-        x, info = nkt.pseudo_transient(lambda v, p: torch.arctan(v), x,
-                                       algo="cg")
+        x, info = nkt.pseudo_transient(lambda v, p: torch.arctan(v), x)
         return x, info.stats.outer_iterations, info.stats.inner_iterations
 
     x0 = _t([3.0])
@@ -159,13 +158,157 @@ def test_export_roundtrip_ptc(tmp_path):
     assert abs(float(loaded[0][0])) < 1e-5
 
     def jfn(x):
-        x, info = nk.pseudo_transient(lambda v, p: jnp.arctan(v), x, algo="cg")
+        x, info = nk.pseudo_transient(lambda v, p: jnp.arctan(v), x)
         return x, info.stats.outer_iterations, info.stats.inner_iterations
 
     xj, oj, ij = _jax_roundtrip(jfn, (jnp.asarray([3.0]),), tmp_path / "ptc.bin")
     assert (int(loaded[1]), int(loaded[2])) == (int(oj), int(ij))
     np.testing.assert_allclose(loaded[0].numpy(), np.asarray(xj), rtol=0,
                                atol=1e-12)
+
+
+# Every Krylov method the JAX package exports, inside newton_krylov_jit on
+# Bratu 16² in f64 to tol_rel 1e-10 (tight enough that both packages' last
+# iterates sit on the same root): (algo, krylov_kwargs).
+ALGOS = {
+    "gmres": ("gmres", {}),
+    "gmres_restarted_mgs": ("gmres", {"restart": 10, "orth": "mgs"}),
+    "gmres_blocked": ("gmres", {"restart": None, "itmax": 60,
+                                "ortho_block": 8}),
+    "fgmres": ("fgmres", {}),
+    "bicgstab": ("bicgstab", {}),
+    "cg_pipelined": ("cg", {"pipeline": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ALGOS))
+def test_export_roundtrip_every_algo(case, tmp_path):
+    """The loaded solve equals the live one bit for bit (state, counts,
+    history); against the JAX package's exported solve of the same
+    configuration the counts are equal and the states within 2e-11
+    relative, the file's f64 Bratu level (measured: ≤ 4.1e-14 absolute,
+    2.2e-12 for restarted MGS, whose cycles restart from iterates that
+    already differ in the last bits)."""
+    algo, kw = ALGOS[case]
+    n = 16
+    pj = jb.default_config(n, lam=4.0)
+    u0 = np.asarray(jb.initial_guess(n))
+    pt = convert.params(pj)
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(tb.residual_scaled, u, pt, algo=algo,
+                                        tol_rel=1e-10, krylov_kwargs=dict(kw))
+        return (u, info.stats.outer_iterations, info.stats.inner_iterations,
+                info.history)
+
+    live = fn(_t(u0))
+    loaded = _roundtrip(fn, (_t(u0),), tmp_path / "solve.pt2")
+    _assert_same_run([live[0], torch.tensor(live[1]), torch.tensor(live[2]),
+                      live[3]], loaded)
+
+    def jfn(u):
+        u, info = nk.newton_krylov_jit(jb.residual_scaled, u, pj, algo=algo,
+                                       tol_rel=1e-10, krylov_kwargs=dict(kw))
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    uj, oj, ij = _jax_roundtrip(jfn, (jnp.asarray(u0),), tmp_path / "solve.bin")
+    assert (int(loaded[1]), int(loaded[2])) == (int(oj), int(ij))
+    assert _rel(loaded[0], uj) <= TOL_JAX_F64
+
+
+def test_export_roundtrip_cgls(tmp_path):
+    """CGLS, whose loop applies Jᵀ (a traced VJP graph under export), on the
+    cubic system A u + u³/10 = b with A = tridiag(−1, 4, −1), n = 32, the
+    matrix a parameter (so Jᵀ reads its transpose): bit for bit against the
+    live solve; the JAX package's exported solve's counts, states within
+    1e-12.  On Bratu 16² the normal equations square κ and the packages'
+    f64 inner counts part (474 against 401, ROADMAP Queue 3 item 22)."""
+    n = 32
+    A = 4.0 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    b = np.sin(np.arange(n) + 1.0)
+
+    def F(u, p):
+        return p[0] @ u + 0.1 * u ** 3 - p[1]
+
+    pt = (_t(A), _t(b))
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(F, u, pt, algo="cgls", tol_rel=1e-10)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    u0 = _t(np.zeros(n))
+    live = fn(u0)
+    loaded = _roundtrip(fn, (u0,), tmp_path / "cgls.pt2")
+    _assert_same_run([live[0], torch.tensor(live[1]), torch.tensor(live[2])],
+                     loaded)
+
+    def jfn(u):
+        u, info = nk.newton_krylov_jit(F, u, (jnp.asarray(A), jnp.asarray(b)),
+                                       algo="cgls", tol_rel=1e-10)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    uj, oj, ij = _jax_roundtrip(jfn, (jnp.zeros(n),), tmp_path / "cgls.bin")
+    assert (int(loaded[1]), int(loaded[2])) == (int(oj), int(ij))
+    np.testing.assert_allclose(loaded[0].numpy(), np.asarray(uj), rtol=0,
+                               atol=1e-12)
+
+
+def test_export_roundtrip_gmres_flagship(tmp_path):
+    """The production flagship at n = 64 with the driver's default
+    ``algo="gmres"`` (f32 Krylov, df32 acceptance, DST(high) built once):
+    the loaded solve equals the live one bit for bit; against the JAX
+    package's exported GMRES flagship the counts are equal and the states
+    within 1e-10 relative (f32 sums: Queue 3 items 2 and 13)."""
+    from newtonkrylov_tpu.fftprec import fft_poisson as j_fft_poisson
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    n = 64
+    pj = jb.default_config(n, lam=5.0)
+    pt = convert.params(pj)
+    u0 = np.asarray(jb.initial_guess(n, dtype=jnp.float32)).astype(np.float64)
+    kw = dict(tol_rel=1e-8, max_niter=20, precond_refresh="once")
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled, u, pt, krylov_dtype=F32,
+            residual_df=tb.residual_scaled_df,
+            M=fft_poisson(precision="high"), **kw)
+        return (u, info.stats.outer_iterations, info.stats.inner_iterations,
+                info.solved)
+
+    live = fn(_t(u0))
+    loaded = _roundtrip(fn, (_t(u0),), tmp_path / "gmres.pt2")
+    _assert_same_run([live[0], torch.tensor(live[1]), torch.tensor(live[2]),
+                      live[3]], loaded)
+    assert bool(loaded[3])
+
+    def jfn(u):
+        u, info = nk.newton_krylov_jit(
+            jb.residual_scaled, u, pj, krylov_dtype=jnp.float32,
+            residual_df=jb.residual_scaled_df,
+            M=j_fft_poisson(precision="high"), **kw)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    uj, oj, ij = _jax_roundtrip(jfn, (jnp.asarray(u0),), tmp_path / "gmres.bin")
+    assert (int(loaded[1]), int(loaded[2])) == (int(oj), int(ij))
+    assert _rel(loaded[0], uj) <= 1e-10
+
+
+def test_export_roundtrip_integrate_scan(tmp_path):
+    """``integrate_scan`` exports (its per-step counts stack tensors): four
+    implicit-midpoint steps of the spring with the default GMRES, bit for
+    bit against the live march."""
+    from newtonkrylov_tpu_torch.problems import spring as ts
+
+    def fn(u0):
+        r = nkt.integrate_scan("midpoint", ts.rhs, u0, ts.default_config(),
+                               0.05, 4)
+        return r.u, r.outer_iterations, r.inner_iterations
+
+    u0 = ts.initial_condition(device="cpu")
+    live = fn(u0)
+    loaded = _roundtrip(fn, (u0,), tmp_path / "scan.pt2")
+    _assert_same_run(list(live), loaded)
 
 
 def test_export_aligned_keeps_kernel_ops(tmp_path):
@@ -202,13 +345,14 @@ def test_export_aligned_keeps_kernel_ops(tmp_path):
 
 def test_export_refuses_host_stepped_paths():
     """A path whose loop reads the host has no exported form and raises:
-    GMRES, the host-stepped driver."""
+    the host-stepped driver ``newton_krylov`` (every Krylov method
+    exports, the tests above)."""
     x0 = _t([3.0])
-    with pytest.raises(Exception, match="no exported form"):
-        serving.export_solver(
-            lambda x: nkt.newton_krylov_jit(lambda v, p: torch.arctan(v), x,
-                                            algo="gmres")[0], (x0,))
     with pytest.raises(Exception, match="no exported form"):
         serving.export_solver(
             lambda x: nkt.newton_krylov(lambda v, p: torch.arctan(v), x,
                                         algo="cg")[0], (x0,))
+    with pytest.raises(Exception, match="no exported form"):
+        serving.export_solver(
+            lambda x: nkt.newton_krylov(lambda v, p: torch.arctan(v), x)[0],
+            (x0,))
