@@ -64,14 +64,15 @@ Phases (each raises on failure; the script exits non-zero after any):
     ``bench.py``'s u₀;
 13. the host-stepped driver, globalization and host-side factorizations:
     (g) the reference's 1-D Bratu gallery at N = 10⁴ in f64 through
-    ``newton_krylov`` (CG with three forcings at N = 2,000, GMRES + ILU(0) in host C++ by
-    bandwidth and by offsets, and GMRES + banded direct solve to
+    ``newton_krylov`` (GMRES + ILU(0) in host C++ by bandwidth and by
+    offsets, and GMRES + banded direct solve to
     max|u − u*| ≤ 5e-6, the direct ones in at most two inners an outer;
     plain GMRES, BiCGStab and CGLS must fail), with the card's refined PCR
     tridiagonal solve at ≤ 1e-9 relative residual beside Thomas on the
-    CPU; (h) Kelley's BVP at n = 801 with GMRES + banded LU in f64 and
-    refined to 1e-8, and the reference's stalling FGMRES + nested-GMRES
-    recipe; (i) Ψtc near the 2-D Bratu fold at 2048² (λ = 6.8, rough
+    CPU (its CG recipes, at N = 2,000, run in path (t)); (h) Kelley's BVP
+    at n = 801 with GMRES + banded LU in f64 and refined to 1e-8 (the
+    reference's stalling FGMRES + nested-GMRES recipe runs in path (t));
+    (i) Ψtc near the 2-D Bratu fold at 2048² (λ = 6.8, rough
     start, f32 Krylov + df32, full GMRES) with ``chebyshev(16,
     lo_frac=1/300)`` — one K4 launch per preconditioner apply — and with the
     DST preconditioner, their roots
@@ -92,10 +93,10 @@ Phases (each raises on failure; the script exits non-zero after any):
     cost of one host-ILU(0) GMRES iteration at N = 10⁴ with its two copies
     and its C++ solve timed apart (measurements only);
 15. time stepping and the differentiable solve (run after 13): (l) the 2-D
-    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 8
+    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 6
     backward-Euler steps of Δt = 0.05 through ``integrate``, f32 Krylov +
     df32) with Cheb-PCG on the Gershgorin box of the step Jacobian — one K4
-    launch per apply — gated on the exact decay g⁸·u₀ and each step's f64
+    launch per apply — gated on the exact decay g⁶·u₀ and each step's f64
     residual; (m) the same march through ``integrate_scan`` with DST-PCG;
     (n) at 256² the two drivers bit for bit and a checkpointed march
     resumed bit for bit; (o) the spring (three steppers, 5 steps), heat1d
@@ -143,12 +144,22 @@ Phases (each raises on failure; the script exits non-zero after any):
     artifact's size and the loaded walls beside the live one; (s2) Ψtc
     (default GMRES), BiCGStab and pipelined CG on Bratu 64² in f64 and CGLS
     on a 64-unknown cubic tridiagonal system, each exported, loaded and
-    held bit for bit against its live run.
+    held bit for bit against its live run;
+19. path (t), run just after path (q): the port's example gallery
+    (``newtonkrylov_tpu_torch/examples``) through each example's ``main`` on
+    the card at ``EXAMPLE_SIZES`` — the JAX examples' sizes, the marches and
+    the 1-D gallery's CG recipes at a cut depth, ``bratu_2d_cuda`` at
+    2048² (its refined CG lane on K1 and K2: K1 launches at least its
+    inner count), ``sharded_bratu`` on a world-1 NCCL group — each gated as
+    its JAX counterpart asserts or prints as expected, with its wall and
+    counts logged; beside them the four unsharded walkthroughs run with
+    ``--device cuda --no-figures``, one subprocess each.
 
-Launch counts are zeroed just before each of phases 6–13 and 15–18 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–19 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
-the two Cheb-PCG paths at 2048², the Ψtc path and the heat march).  The
+the two Cheb-PCG paths at 2048², the Ψtc path and the heat march, and its
+K1 and K2 counts those of the main path and path (t)).  The
 last two lines are a JSON object of per-kernel results and the JSON
 status object.  Without a CUDA device the
 script fails and prints no result.
@@ -183,7 +194,7 @@ CONV_REF = {("adi", 256): (10, 441), ("mg-general", 256): (8, 27),
 TWO_GRID_REF = (8, 28)
 FLAGSHIP_TPU_REF = (6, 11)  # the DST-PCG flagship at 2048² (BENCH_r05.json)
 GALLERY_N = 10_000  # the reference's 1-D Bratu size (examples/bratu_1d.py)
-GALLERY_SMALL_N = 2_000  # the three CG recipes (time)
+GALLERY_SMALL_N = 2_000  # the three CG recipes, in path (t) (time)
 PIPELINED_ITMAX = 50  # inner cap of path (b); plain CG takes ≤ 2 an outer
 PTC_LAM = 6.8     # path (i): just below the 2-D Bratu fold (λ* ≈ 6.808)
 # Path (i) runs full GMRES (a basis of up to PTC_ITMAX f32 vectors, 9.6 GB
@@ -197,12 +208,13 @@ NLDIFF_N = 256    # path (j): the size of the c = 25 MG-general lane
 BVP_NESTED_ITMAX = 40
 # Paths (l)–(n): the 2-D heat equation, a = 0.01, u₀ = sin(πx)sin(πy),
 # backward-Euler steps of Δt = 0.05 (8,400× the explicit limit at 2048²):
-# 8 to t = 0.4 (20 to t = 1 before path (q) needed the time)
+# 6 to t = 0.3 (20 to t = 1 before path (q) needed the time, 8 before path
+# (t))
 HEAT_N = 2048
 HEAT_SMALL_N = 256
 HEAT_A = 0.01
 HEAT_DT = 0.05
-HEAT_STEPS = 8
+HEAT_STEPS = 6
 # Path (o): the spring at the reference's Δt = 0.01 for 5 steps (to t = 0.05,
 # not its t = 2), the upwind march for 5 (to t = 0.05, not the JAX test's
 # 0.2), heat1d at Δt = 0.1 to t = 0.3 (not 1): a step is host-bound at
@@ -216,6 +228,35 @@ HEAT1D_T = 0.3
 SHARDED_HEAT_STEPS = 5
 GRAD_N = 512      # path (p): the differentiable solve
 GRAD_LAM = 5.0
+# Path (t): the port's example gallery (newtonkrylov_tpu_torch/examples) at
+# the JAX examples' sizes, bratu_2d_cuda at the flagship's 2048².  The
+# marches and the host-stepped recipes that phases (g) and (h) already cut
+# run at a cut depth: every step is a Newton solve whose outers each trace
+# their linearization on the host (0.1-0.3 s), whatever the size.
+EXAMPLE_SIZES = {
+    "simple_2d": {},
+    "spring_implicit": {"t_final": 2.0},   # 20 of the 400 steps a stepper
+    "heat_1d": {"t_final": 0.3},           # 3 of the 30 steps a stepper
+    "heat_1d_dg": {"t_final": 0.005},      # 10 of the 100 steps a march
+    "heat_2d": {"steps": 8},               # 8 of the 40 steps a stepper
+    "bratu_1d": {"cg_n": GALLERY_SMALL_N},  # the CG recipes at (g)'s N
+    "bvp_kelley": {"nested_itmax": BVP_NESTED_ITMAX},  # (h)'s cap
+    "continuation_bratu": {},
+    "ptc_globalization": {},
+    "convdiff_2d": {},
+    "bratu_2d_cuda": {"n": N},
+    "sharded_bratu": {},
+}
+# the examples run this many at a time (each host-bound, one thread), the
+# longest first; the walkthroughs run on the card, one process each, beside;
+# the sharded one needs W ranks (NCCL refuses two on one card), and
+# sharded_bratu on a world-1 group stands in for it
+WALKTHROUGHS = ("diagnostics", "heat1d_dg", "heat2d", "precision")
+EXAMPLE_WORKERS = 3
+EXAMPLE_ORDER = ("convdiff_2d", "bratu_1d", "heat_1d", "ptc_globalization",
+                 "bvp_kelley", "heat_1d_dg", "continuation_bratu",
+                 "spring_implicit", "sharded_bratu", "heat_2d", "simple_2d",
+                 "bratu_2d_cuda")
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -1004,8 +1045,9 @@ def phase_pipelined(torch, nkt, bratu2d, plain):
 
 def phase_gallery(torch, nkt):
     """Path (g): the reference's 1-D Bratu gallery (``examples/bratu_1d.py``)
-    at N = 10⁴ (the three CG recipes at N = 2,000),
-    λ = 3.51382, in f64 through ``newton_krylov``, as the example calls it.
+    at N = 10⁴, λ = 3.51382, in f64 through ``newton_krylov``, as the
+    example calls it; its three CG recipes (at N = 2,000) run in path (t),
+    in the port's example.
     The positive recipes must solve with max|u − u*| ≤ 5e-6 against the
     closed form (scaled by Δx² at N = 2,000); GMRES + banded direct (PCR
     with refinement on the card) and GMRES + ILU(0) (host C++, by bandwidth
@@ -1021,13 +1063,8 @@ def phase_gallery(torch, nkt):
     negative = dict(max_niter=4, krylov_kwargs={"itmax": 60})
     # (tag, N, solves, one inner an outer, kwargs); the three CG recipes
     # (tens of thousands of host-stepped iterations at N = 10⁴) run at
-    # GALLERY_SMALL_N to keep the script's time
+    # GALLERY_SMALL_N in path (t)'s bratu_1d, with the same gates
     recipes = [
-        ("cg", GALLERY_SMALL_N, True, False, dict(algo="cg")),
-        ("cg + Fixed(0.1)", GALLERY_SMALL_N, True, False,
-         dict(algo="cg", forcing=nkt.Fixed(0.1))),
-        ("cg, exact Newton", GALLERY_SMALL_N, True, False,
-         dict(algo="cg", forcing=None)),
         ("gmres + ILU0 (host C++)", GALLERY_N, True, True,
          dict(algo="gmres", N=tp.ilu0(bandwidth=1))),
         ("gmres + ILU0, offsets (-1, 0, 1)", GALLERY_N, True, True,
@@ -1169,10 +1206,9 @@ def phase_bvp(torch, nkt):
     """Path (h): Kelley's BVP (``examples/bvp_kelley.py``), n = 801, through
     ``newton_krylov`` with GMRES + ``banded_lu(2, 2)`` in f64, and refined
     to 1e-8 with f32 Krylov and the df32 residual; each gated on ``solved``
-    and its plain f64 residual under its tolerance.  Then the reference's
-    FGMRES + nested GMRES(30) recipe (restart 40, 5 outers), which must end
-    unsolved with a finite iterate; its inner solves are capped at one
-    restart cycle (``BVP_NESTED_ITMAX``)."""
+    and its plain f64 residual under its tolerance.  The reference's
+    stalling FGMRES + nested GMRES(30) recipe (its inner solves capped at
+    ``BVP_NESTED_ITMAX``) runs in path (t), in the port's example."""
     from newtonkrylov_tpu_torch import precond as tp
     from newtonkrylov_tpu_torch.problems import bvp
 
@@ -1204,22 +1240,6 @@ def phase_bvp(torch, nkt):
                 and bool(torch.isfinite(U).all()) and tuple(U.shape) == (2 * p.n,)):
             raise AssertionError(f"bvp {tag}: not solved, or the f64 residual "
                                  "is above the tolerance")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    U, info = nkt.newton_krylov(bvp.residual, U0, p, algo="fgmres",
-                                N=tp.nested_krylov(itmax=30),
-                                krylov_kwargs={"restart": 40, "itmax": BVP_NESTED_ITMAX},
-                                max_niter=5)
-    torch.cuda.synchronize()
-    log(f"[bvp] n={p.n} fgmres + nested GMRES(30), restart 40, inner solves "
-        f"capped at {BVP_NESTED_ITMAX}, 5 outers (the reference's recipe, "
-        f"which stalls): solved={info.solved} "
-        f"outer={info.stats.outer_iterations} inner={info.stats.inner_iterations} "
-        f"|F|={info.stats.n_res:.4e} of |F0| {f0:.4e} "
-        f"wall={time.perf_counter() - t0:.3f} s")
-    if info.solved or not bool(torch.isfinite(U).all()):
-        raise AssertionError("bvp: the nested-Krylov recipe converged or "
-                             "returned a non-finite iterate")
 
 
 def phase_ptc(torch, nkt, bratu2d):
@@ -1428,12 +1448,12 @@ def _gate_decay(torch, tag, u, u0, g, steps):
 
 def phase_heat_cheb(torch, nkt):
     """Path (l): the 2-D heat equation at 2048², a = 0.01, u₀ =
-    sin(πx)sin(πy), 8 backward-Euler steps of Δt = 0.05 (8,400× the
+    sin(πx)sin(πy), 6 backward-Euler steps of Δt = 0.05 (8,400× the
     explicit limit) through ``integrate`` with Cheb-PCG:
     ``chebyshev(16, bounds=(−1 − 8o, −1))``, the probed Gershgorin box of
     J = −I + o·S, built once a step (one K4 launch per apply on the card).
     Gates: no failed step, every step's f64 residual ‖G(uₙ₊₁)‖ ≤
-    1.2e-8·‖G(uₙ)‖, the final state g⁸·u₀ within 1e-6·max|u₀|.  Logs the
+    1.2e-8·‖G(uₙ)‖, the final state g⁶·u₀ within 1e-6·max|u₀|.  Logs the
     per-step counts, the wall, whether the df32 floor clamp engaged, and
     one step's device busy share.  Returns (the final state, the Chebyshev
     applies, K4's included in the profiled step)."""
@@ -1510,7 +1530,7 @@ def phase_heat_dst_scan(torch, nkt, u_cheb):
     """Path (m): the march of (l) through ``integrate_scan`` with DST-PCG
     (``fft_poisson()``, exact for this constant-coefficient J), saving every
     5th step.  Gates: no failed step, the history's shape and times, the
-    final state within 1e-7·max|u₀| of (l)'s and g⁸·u₀ within
+    final state within 1e-7·max|u₀| of (l)'s and g⁶·u₀ within
     1e-6·max|u₀|."""
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
     from newtonkrylov_tpu_torch.problems import heat2d
@@ -2649,6 +2669,248 @@ def phase_trace(torch, loaded, u0, workdir):
         raise AssertionError("trace: the annotate range is not in the trace")
 
 
+def _gate_examples(name, r):
+    """What the JAX example asserts or prints as expected, on the port
+    example's returned dict; raises on a miss."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"example {name}: {what}")
+
+    if name == "simple_2d":
+        roots = [(1.0, 1.0), (1.0, 1.0), (-0.47767, 1.331102)]
+        for run, root in zip(r["runs"], roots):
+            need(run["solved"], f"x0={run['x0']} not solved")
+            need(max(abs(a - b) for a, b in zip(run["u"], root)) <= 2e-5,
+                 f"x0={run['x0']} left the root {root}")
+    elif name == "spring_implicit":
+        # energy v² + γ²x² (γ² = 2): backward Euler damps it, the
+        # trapezoid rule conserves it
+        energy = {k: u[1] ** 2 + 2.0 * u[0] ** 2 for k, u in r["u"].items()}
+        need(all(v == 0 for v in r["n_failed"].values()), "a step failed")
+        need(energy["euler"] < (1 - 1e-3) * 0.02, "euler does not damp")
+        need(abs(energy["trapezoid"] - 0.02) <= 1e-3 * 0.02,
+             "trapezoid does not conserve the energy")
+    elif name == "heat_1d":
+        need(all(d["rank"] == 12 for d in r["dense"].values()), "rank")
+        for k in ("euler", "midpoint", "trapezoid"):
+            mf = r["matrix_free"][k]
+            need(abs(mf["cond_mf"] - mf["cond_dense"]) <= 1e-6 * mf["cond_dense"],
+                 f"{k}: matrix-free cond against dense")
+            need(r["march"][k]["n_failed"] == 0, f"{k}: a step failed")
+        need(r["matrix_free"]["lower_bound"] > 2900, "the N=1e5 lower bound")
+    elif name == "heat_1d_dg":
+        for tag in ("legendre DG", "upwind order-3"):
+            m = r[tag]
+            need(m["n_failed"] == 0 and 0.5 * m["norm_u0"] < m["norm_u"] < m["norm_u0"],
+                 f"{tag}: a failed step, or the norm does not decay")
+    elif name == "heat_2d":
+        for k in ("euler", "midpoint", "trapezoid"):
+            m = r[k]
+            need(m["n_failed"] == 0 and abs(m["decay"] - m["analytic"]) <= 1e-3,
+                 f"{k}: a failed step, or the decay off the analytic rate")
+        need(r["periodic_residual"] == 0.0, "periodic equilibrium")
+    elif name == "bratu_1d":
+        for tag, m in r.items():
+            # the discretization error scales with Δx²: 5e-6 at N = 10⁴
+            limit = 5e-6 * ((GALLERY_N + 1) / (m["n"] + 1)) ** 2
+            if m["expect_fail"]:
+                need(not m["solved"], f"{tag}: a negative recipe converged")
+            else:
+                need(m["solved"] and m["err"] <= limit, f"{tag}: not solved, "
+                     f"or max|u - u*| {m['err']:.2e} above {limit:.2e}")
+        ilu = r["gmres + ILU0 (host C++)"]
+        need(ilu["host_copies"]["device_to_host"]
+             == ilu["host_copies"]["host_to_device"] >= ilu["inner"] > 0,
+             "ILU(0): not one host copy each way per apply")
+    elif name == "bvp_kelley":
+        need(r["banded_lu"]["solved"] and r["banded_lu"]["n_res"] <= 1e-8,
+             "the banded-LU recipe")
+        need(not r["nested"]["solved"] and r["nested"]["n_res"] > 1e-2,
+             "the nested-Krylov recipe did not stall")
+    elif name == "continuation_bratu":
+        need(all(st["solved"] for st in r["steps"]), "a step below the fold")
+        need(r["steps"][-1]["outer"] <= 10, "the near-fold step's outers")
+        need(not r["past_fold"]["solved"], "lam = 7.50 past the fold solved")
+    elif name == "ptc_globalization":
+        need(r["arctan"]["ptc"]["solved"] and not r["arctan"]["newton"]["solved"],
+             "arctan: Ψtc must solve where Newton diverges")
+        for amp, m in r["bratu"].items():
+            need(m["ptc_solved"] and m["ptc_outer"] <= m["newton_outer"],
+                 f"amp {amp}: Ψtc unsolved or slower than Newton")
+    elif name == "convdiff_2d":
+        for tag, m in r.items():
+            if tag == "c25 dst restarted":
+                need(not m["solved"], "the restarted DST recipe converged")
+            else:
+                limit = 1e-6 if "df32" in tag else 1e-10
+                need(m["solved"] and m["err"] <= limit, f"{tag}: not solved, "
+                     f"or max|u - u*| {m['err']:.2e} above {limit:.0e}")
+        ilu = r["c25 ilu0"]
+        need(ilu["host_copies"]["device_to_host"] >= ilu["inner"] > 0,
+             "ILU(0): host copies")
+    elif name == "bratu_2d_cuda":
+        cg = r["refined_cg"]
+        need(cg["solved"] and r["df32_dst"]["solved"], "a lane unsolved")
+        need(cg["launches"]["stencil_jvp"] >= cg["inner"],
+             "K1 launched fewer times than the refined lane's inners")
+        need(r["max_diff"] <= 1e-6, "the two lanes reach different roots")
+    elif name == "sharded_bratu":
+        single = r["single"]
+        for shape, m in r["meshes"].items():
+            need(m["solved"] and (m["outer"], m["inner"]) == (
+                single["outer"], single["inner"]) and m["max_diff"] <= 1e-9,
+                f"mesh {shape}: counts or state off the single-device solve")
+        d = r["dst"]
+        need(d["solved"] and d["inner"] == d["single_inner"] and d["max_diff"] <= 1e-9,
+             "global DST: counts or state off the single-device solve")
+
+
+def _example_summary(name, r):
+    """One line of the counts an example returned."""
+    def counts(m):
+        return f"{m['outer']}/{m['inner']}"
+
+    if name == "simple_2d":
+        return ", ".join(counts(x) for x in r["runs"])
+    if name == "spring_implicit":
+        return f"amplitude {r['amplitude']}"
+    if name == "heat_1d":
+        return ", ".join(f"{k} {m['outer'].tolist()}/{m['inner'].tolist()}"
+                         for k, m in r["march"].items())
+    if name in ("heat_1d_dg", "heat_2d"):
+        return ", ".join(f"{k} {m['outer'].tolist()}/{m['inner'].tolist()}"
+                         for k, m in r.items() if isinstance(m, dict))
+    if name in ("bratu_1d", "convdiff_2d"):
+        return ", ".join(f"{k} {counts(m)}" for k, m in r.items())
+    if name == "bvp_kelley":
+        return f"banded LU {counts(r['banded_lu'])}, nested {counts(r['nested'])}"
+    if name == "continuation_bratu":
+        return ", ".join(counts(m) for m in r["steps"]) + f", past {counts(r['past_fold'])}"
+    if name == "ptc_globalization":
+        return ", ".join(f"{a}: newton {m['newton_outer']} ptc {m['ptc_outer']}"
+                         for a, m in r["bratu"].items())
+    if name == "bratu_2d_cuda":
+        return (f"refined CG {counts(r['refined_cg'])} in {r['refined_cg']['wall']:.3f} s, "
+                f"df32 + DST {counts(r['df32_dst'])} in {r['df32_dst']['wall']:.3f} s; "
+                f"K1/K2 {r['refined_cg']['launches']}")
+    if name == "sharded_bratu":
+        return (f"single {counts(r['single'])}, meshes "
+                + ", ".join(f"{s} {counts(m)}" for s, m in r["meshes"].items())
+                + f", global DST {counts(r['dst'])}")
+    return ""
+
+
+def _example_worker(name, size):
+    """One example's ``main`` on the card, its printed lines captured:
+    ``(result, printed, wall)``.  Runs in a spawned process of path (t)'s
+    pool, or in this one."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"newtonkrylov_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(device="cuda", **size)
+    torch.cuda.synchronize()
+    return result, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(torch):
+    """Path (t): every example of the port's gallery through its ``main``
+    on the card at :data:`EXAMPLE_SIZES`, each gated as its JAX counterpart
+    asserts or prints as expected (:func:`_gate_examples`), with its wall,
+    its counts and its printed lines logged; ``sharded_bratu`` on a
+    world-1 NCCL group.  The examples are host-bound, so they run
+    ``EXAMPLE_WORKERS`` at a time in spawned processes, and
+    ``bratu_2d_cuda`` in this one, whose K1/K2 counts the caller reads;
+    beside them the four unsharded walkthroughs run on the card, one
+    subprocess each (``--device cuda --no-figures``), and must end with
+    their assertions held.  Every child runs one host thread.  Returns the
+    examples' dicts."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from newtonkrylov_tpu_torch import examples
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep) if q])
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_t_")
+    procs, ended = {}, {}
+    t_start = time.perf_counter()
+    old_threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"  # inherited by the spawned pool
+    pool = ProcessPoolExecutor(EXAMPLE_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for name in WALKTHROUGHS:
+            with open(os.path.join(logdir, f"{name}.log"), "w") as f:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "newtonkrylov_tpu_torch.docs.run_walkthroughs",
+                     "--device", "cuda", "--no-figures", name],
+                    stdout=f, stderr=subprocess.STDOUT, cwd=root, env=env)
+        log(f"[examples] started the walkthroughs {', '.join(WALKTHROUGHS)} "
+            "on the card, one process each; sharded_bratu on a world-1 NCCL "
+            "group stands in for the sharded walkthrough, whose W ranks need "
+            f"W cards; the examples {EXAMPLE_WORKERS} at a time in spawned "
+            "processes, bratu_2d_cuda in this one")
+        local = "bratu_2d_cuda"
+        futures = {name: pool.submit(_example_worker, name, EXAMPLE_SIZES[name])
+                   for name in EXAMPLE_ORDER if name != local}
+        runs = {local: _example_worker(local, EXAMPLE_SIZES[local])}
+        for name, fut in futures.items():
+            runs[name] = fut.result(timeout=900)
+        results = {}
+        for name in examples.NAMES:
+            r, printed, wall = runs[name]
+            for line in printed.splitlines():
+                log(f"[examples] {name} | {line}")
+            log(f"[examples] {name} {EXAMPLE_SIZES[name] or '(documented size)'}: "
+                f"wall {wall:.3f} s; {_example_summary(name, r)}")
+            _gate_examples(name, r)
+            results[name] = r
+        log(f"[examples] the examples ended {time.perf_counter() - t_start:.1f} s "
+            "after the phase began")
+        while len(ended) < len(procs):
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t_start
+            if time.perf_counter() - t_start > 900:
+                raise AssertionError("the walkthroughs outlasted 900 s")
+            time.sleep(0.5)
+        for name, proc in procs.items():
+            out = open(os.path.join(logdir, f"{name}.log")).read()
+            for line in out.splitlines():
+                if "Warning" not in line and "warnings.warn" not in line:
+                    log(f"[walkthrough] {name} | {line}")
+            log(f"[walkthrough] {name}: exit code {proc.returncode}, ended "
+                f"{ended[name]:.1f} s after the phase began")
+            if proc.returncode != 0 or "   OK" not in out:
+                raise AssertionError(f"walkthrough {name} failed on the card "
+                                     f"(exit code {proc.returncode})")
+        return results
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        if old_threads is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = old_threads
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2850,6 +3112,25 @@ def main() -> int:
         torch, nkt, bratu2d, smi, info_f, flagship.pop("u"),
         info_c, heat_counts))
     log(f"[summary] path (q): {time.perf_counter() - t0:.1f} s")
+
+    # this slice's path (t): the example gallery and the walkthroughs on the
+    # card; bratu_2d_cuda's refined CG lane launches K1 every matvec and K2
+    # every residual, and the kernels JSON counts them beside the main path's
+    t0 = time.perf_counter()
+    t_launches = {}
+    gallery = counted("examples", ("stencil_jvp", "bratu_residual"),
+                      lambda: phase_examples(torch), into=t_launches)
+    lane = gallery["bratu_2d_cuda"]["refined_cg"]
+    log(f"[launches] examples: K1 {t_launches['stencil_jvp']} launches "
+        f"(bratu_2d_cuda's refined CG lane: {lane['outer']} / {lane['inner']}, "
+        f"its own count {lane['launches']}), K2 {t_launches['bratu_residual']}")
+    if t_launches["stencil_jvp"] < lane["inner"]:
+        raise AssertionError("K1 launched fewer times than bratu_2d_cuda's "
+                             "refined CG inner iterations")
+    for key in ("stencil_jvp", "bratu_residual"):
+        launches[key] += t_launches[key]
+    del gallery
+    log(f"[summary] path (t): {time.perf_counter() - t0:.1f} s")
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)

@@ -25,8 +25,10 @@ process per device over ``torch.distributed``, the halo exchange, the
 sharded drivers (:func:`.halo.newton_krylov_sharded`,
 :func:`.halo.integrate_scan_sharded`), :class:`ShardedSpace` and the
 sharded preconditioners, with the bring-up in :mod:`.utils.distributed`
-and a multi-device dry run in :mod:`.utils.dryrun`.  Entry points that
-create tensors do so on the card unless the caller names a device.
+and a multi-device dry run in :mod:`.utils.dryrun`; and the JAX package's
+example gallery (:mod:`.examples`) and walkthroughs (:mod:`.docs`).  Entry
+points that create tensors do so on the card unless the caller names a
+device.
 
 This package imports ``torch`` and never ``jax``.
 """
@@ -48,6 +50,8 @@ from .operator import (
 from .solvers import KrylovResult, bicgstab, cg, cgls, fgmres, gmres
 from .spaces import EuclideanSpace, MaskedSpace, ShardedSpace, VectorSpace
 from .timestep import integrate, integrate_scan
+
+__version__ = "0.1.0"
 
 __all__ = [
     "newton_krylov",

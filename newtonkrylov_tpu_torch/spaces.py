@@ -24,7 +24,8 @@ from .exportable import exporting
 from .tree import tree_dtype, tree_map, tree_norm, tree_project_rows, tree_vdot
 from .utils import distributed as _dist
 
-__all__ = ["VectorSpace", "EuclideanSpace", "MaskedSpace", "ShardedSpace"]
+__all__ = ["VectorSpace", "EuclideanSpace", "MaskedSpace", "ShardedSpace",
+           "default_space"]
 
 
 class VectorSpace:
@@ -155,3 +156,7 @@ class ShardedSpace(VectorSpace):
         for ax in self.axis_names:
             mult *= _dist.axis_size(ax, self.mesh)
         return mult
+
+
+def default_space() -> VectorSpace:
+    return EuclideanSpace()

@@ -22,6 +22,7 @@ __all__ = [
     "tree_axpy",
     "tree_axpby",
     "tree_zeros_like",
+    "tree_ones_like",
     "tree_where",
     "tree_size",
     "tree_dtype",
@@ -92,6 +93,10 @@ def tree_scale(a, x):
 
 def tree_zeros_like(x):
     return tree_map(torch.zeros_like, x)
+
+
+def tree_ones_like(x):
+    return tree_map(torch.ones_like, x)
 
 
 def tree_where(pred, x, y):

@@ -18,7 +18,7 @@ tensor ops, such as ``fft_poisson``; a factory rebuilt inside the loop
 (``pseudo_transient``'s, every step) must make no tensor from host data.
 Each Krylov loop is a ``while_loop`` over its live body (GMRES: the
 Arnoldi step, with the rotations, the MGS sweep, the chunked projection
-and the back-substitution as nested ``while_loop``\ s over the step
+and the back-substitution as nested ``while_loop``\\ s over the step
 count), so the loaded program equals the live solve bit for bit.  The
 host-stepped :func:`~newtonkrylov_tpu_torch.newton.newton_krylov` raises
 under export; nothing falls back.

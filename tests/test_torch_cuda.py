@@ -929,3 +929,19 @@ def test_exchange_transpose_world1_nccl(cuda_device, tmp_path, overlap):
         assert torch.equal(jtw, ref)
     gap = abs(float((jv * w).sum() - (v * jtw).sum()))
     assert gap <= 1e-12 * float(jv.norm() * w.norm())
+
+
+def test_bratu_2d_cuda_example_on_card(cuda_device):
+    """The port's flagship example at 256² on the card: both lanes solved
+    (the refined CG lane at ‖F‖ ≤ 1e-8·‖F₀‖ with K1 launched at least once
+    a CG iteration and K2 once a residual), the two lanes at the same
+    root."""
+    from newtonkrylov_tpu_torch.examples import bratu_2d_cuda
+
+    got = bratu_2d_cuda.main(device="cuda", n=256)
+    cg, dst = got["refined_cg"], got["df32_dst"]
+    assert got["n"] == 256 and cg["solved"] and dst["solved"]
+    assert cg["n_res"] <= 1e-8 * cg["history"][0] + 1e-12
+    assert cg["launches"]["stencil_jvp"] >= cg["inner"]
+    assert cg["launches"]["bratu_residual"] >= cg["outer"] + 1
+    assert got["max_diff"] <= 1e-6

@@ -356,3 +356,61 @@ def test_export_refuses_host_stepped_paths():
         serving.export_solver(
             lambda x: nkt.newton_krylov(lambda v, p: torch.arctan(v), x)[0],
             (x0,))
+
+
+# ROADMAP Queue 3 item 23, as logged: Kelley's 2×2 system from [2.0, 0.5]
+# (the reference's first start), with the logged algo="cg" and with the
+# default GMRES, under the default forcing and the tuned
+# EisenstatWalker(eta_max=TUNED_ETA_MAX) of examples/simple_2d.py:44.
+KELLEY_CASES = {
+    "cg_default": ("cg", None),
+    "gmres_default": ("gmres", None),
+    "gmres_tuned": ("gmres", "tuned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KELLEY_CASES))
+def test_export_roundtrip_kelley(case, tmp_path):
+    """Queue 3 item 23 does not reproduce: the logged solve exports, loads
+    and runs, its state, counts and ``solved`` bit for bit with the live
+    solve — also with CG, whose Jacobian here is not SPD, so both packages'
+    live CG solves diverge (unsolved, to ~1e32).  With GMRES the JAX
+    package's exported solve takes the same counts and its state is within
+    1e-12.  A list u₀, the other reading of the logged call, is refused by
+    both packages' drivers alike (TypeError), live as well as exported."""
+    from newtonkrylov_tpu.problems import simple as js
+    from newtonkrylov_tpu_torch.problems import simple as ts
+
+    algo, forcing = KELLEY_CASES[case]
+    kw = {} if forcing is None else {
+        "forcing": nkt.EisenstatWalker(eta_max=ts.TUNED_ETA_MAX)}
+    jkw = {} if forcing is None else {
+        "forcing": nk.EisenstatWalker(eta_max=js.TUNED_ETA_MAX)}
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(ts.residual, u, algo=algo, **kw)
+        return (u, info.stats.outer_iterations, info.stats.inner_iterations,
+                info.solved)
+
+    u0 = _t([2.0, 0.5])
+    live = fn(u0)
+    loaded = _roundtrip(fn, (u0,), tmp_path / "kelley.pt2")
+    _assert_same_run([live[0], torch.tensor(live[1]), torch.tensor(live[2]),
+                      live[3]], loaded)
+    assert bool(loaded[3]) == (algo == "gmres")
+    with pytest.raises(TypeError):
+        nkt.newton_krylov_jit(ts.residual, [2.0, 0.5], algo=algo, **kw)
+    with pytest.raises(TypeError):
+        nk.newton_krylov_jit(js.residual, [2.0, 0.5], algo=algo, **jkw)
+    if algo != "gmres":
+        return
+
+    def jfn(u):
+        u, info = nk.newton_krylov_jit(js.residual, u, algo=algo, **jkw)
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    uj, oj, ij = _jax_roundtrip(jfn, (jnp.asarray([2.0, 0.5]),),
+                                tmp_path / "kelley.bin")
+    assert (int(loaded[1]), int(loaded[2])) == (int(oj), int(ij))
+    np.testing.assert_allclose(loaded[0].numpy(), np.asarray(uj), rtol=0,
+                               atol=1e-12)
