@@ -93,14 +93,14 @@ Phases (each raises on failure; the script exits non-zero after any):
     cost of one host-ILU(0) GMRES iteration at N = 10⁴ with its two copies
     and its C++ solve timed apart (measurements only);
 15. time stepping and the differentiable solve (run after 13): (l) the 2-D
-    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 6
+    heat equation at 2048² (a = 0.01, u₀ = sin(πx)sin(πy), 5
     backward-Euler steps of Δt = 0.05 through ``integrate``, f32 Krylov +
     df32) with Cheb-PCG on the Gershgorin box of the step Jacobian — one K4
-    launch per apply — gated on the exact decay g⁶·u₀ and each step's f64
+    launch per apply — gated on the exact decay g⁵·u₀ and each step's f64
     residual; (m) the same march through ``integrate_scan`` with DST-PCG;
     (n) at 256² the two drivers bit for bit and a checkpointed march
-    resumed bit for bit; (o) the spring (three steppers, 5 steps), heat1d
-    (3 steps), a refined heat1d_dg step and the upwind march (5 steps) on
+    resumed bit for bit; (o) the spring (three steppers, 3 steps), heat1d
+    (2 steps), a refined heat1d_dg step and the upwind march (3 steps) on
     the card against the CPU; (p) d(Σu*)/dλ of the 2-D Bratu root at 512²
     by the adjoint against central differences;
 16. the sharded solvers, path (q): a world-1 NCCL process group (a file
@@ -153,13 +153,36 @@ Phases (each raises on failure; the script exits non-zero after any):
     inner count), ``sharded_bratu`` on a world-1 NCCL group — each gated as
     its JAX counterpart asserts or prints as expected, with its wall and
     counts logged; beside them the four unsharded walkthroughs run with
-    ``--device cuda --no-figures``, one subprocess each.
+    ``--device cuda --no-figures``, one subprocess each;
+20. path (u), run just after path (t): the large-side regime through the
+    port's measuring programs (``newtonkrylov_tpu_torch/benchmarks``), the
+    flagship configuration (λ = 5, f32 CG + df32, ``tol_rel=1e-8``,
+    ``max_niter=20``) through ``chain_solve`` and ``xl8192.run_lane``, each
+    lane gated on ``solved`` and its f64 true residual at most the
+    tolerance the driver accepted at (clamped to the df32 floor), its
+    counts beside the JAX package's TPU records: first K4 against its
+    plain version at 8192², degree 8, bit for bit (before the counts are
+    zeroed); (u1) the DST flagship at 4096² with its marginal wall (two
+    chained solves against one) and its floor clamp; (u2) MG-PCG and (u3)
+    two-grid (``engine="xla"`` and ``"pallas"``, K4 exactly two launches an
+    apply) at 4096²; (u4) MG-PCG and both two-grids at 8192², each with its
+    peak device memory, marginal wall and the busy share of its first solve
+    under the profiler (MG-PCG: the host and device time of one V-cycle
+    apply); (u5) ``floor_probe`` at 1024² and 4096², ``floor_estimate(u₀)``
+    at or above the measured plateau; (u6) ``solve_profile`` at 2048², the
+    flagship's 6 / 7 and each phase's host and device ms; (u7)
+    ``run_configs`` — the five BASELINE configurations, config 5 on a
+    world-1 NCCL group — in a process of its own (host-bound, no kernel)
+    started when path (t)'s examples end, beside its last walkthrough, and
+    gated first in path (u), before its timed lanes, against the port's
+    committed CPU record.
 
-Launch counts are zeroed just before each of phases 6–13 and 15–19 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–20 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
-the two Cheb-PCG paths at 2048², the Ψtc path and the heat march, and its
-K1 and K2 counts those of the main path and path (t)).  The
+the two Cheb-PCG paths at 2048², the Ψtc path, the heat march and path
+(u)'s pallas two-grids, and its K1 and K2 counts those of the main path
+and path (t)).  The
 last two lines are a JSON object of per-kernel results and the JSON
 status object.  Without a CUDA device the
 script fails and prints no result.
@@ -208,21 +231,21 @@ NLDIFF_N = 256    # path (j): the size of the c = 25 MG-general lane
 BVP_NESTED_ITMAX = 40
 # Paths (l)–(n): the 2-D heat equation, a = 0.01, u₀ = sin(πx)sin(πy),
 # backward-Euler steps of Δt = 0.05 (8,400× the explicit limit at 2048²):
-# 6 to t = 0.3 (20 to t = 1 before path (q) needed the time, 8 before path
-# (t))
+# 5 to t = 0.25 (20 to t = 1 before path (q) needed the time, 8 before path
+# (t), 6 before path (u))
 HEAT_N = 2048
 HEAT_SMALL_N = 256
 HEAT_A = 0.01
 HEAT_DT = 0.05
-HEAT_STEPS = 6
-# Path (o): the spring at the reference's Δt = 0.01 for 5 steps (to t = 0.05,
-# not its t = 2), the upwind march for 5 (to t = 0.05, not the JAX test's
-# 0.2), heat1d at Δt = 0.1 to t = 0.3 (not 1): a step is host-bound at
+HEAT_STEPS = 5
+# Path (o): the spring at the reference's Δt = 0.01 for 3 steps (to t = 0.03,
+# not its t = 2), the upwind march for 3 (to t = 0.03, not the JAX test's
+# 0.2), heat1d at Δt = 0.1 to t = 0.2 (not 1): a step is host-bound at
 # 0.14–0.8 s on either device, so the reference's 200 spring steps would
-# take ~7 minutes for three steppers
-SPRING_STEPS = 5
-UPWIND_STEPS = 5
-HEAT1D_T = 0.3
+# take ~7 minutes for three steppers (5, 5 and t = 0.3 before path (u))
+SPRING_STEPS = 3
+UPWIND_STEPS = 3
+HEAT1D_T = 0.2
 # Path (q): the sharded solvers on a world-1 NCCL group, the heat march of
 # (m) cut to 5 steps
 SHARDED_HEAT_STEPS = 5
@@ -257,6 +280,24 @@ EXAMPLE_ORDER = ("convdiff_2d", "bratu_1d", "heat_1d", "ptc_globalization",
                  "bvp_kelley", "heat_1d_dg", "continuation_bratu",
                  "spring_implicit", "sharded_bratu", "heat_2d", "simple_2d",
                  "bratu_2d_cuda")
+
+# Path (u): the large-side regime.  The JAX package's TPU iteration counts
+# (outer, inner) of its lanes (BENCH_r05.json at 4096², docs/design.md's
+# 8192² table); counts only, no yardstick of time.
+LARGE_N = 4096     # bench.py's largest lanes (bench.py:234-243)
+XL_N = 8192        # benchmarks/xl8192.py's default side
+LARGE_TPU_REF = {"DST flagship": (6, 11), "MG-PCG": (7, 39), "two-grid": (8, 28)}
+XL_TPU_REF = {"MG-PCG": (8, 43), "two-grid": (8, 29)}
+FLOOR_SIZES = (1024, 4096)  # (u5): where floor_estimate(u₀) must reach the plateau
+PROFILE_N = 2048   # (u6): solve_profile's flagship
+K4_XL_DEGREE = 8   # K4 against its plain version at XL_N², the two-grid's degree
+# (u7): the f32 Krylov config's inner count against the CPU record
+# (ROADMAP Queue 3 item 2: f32 reductions sum in another order; Bratu 256²
+# took 1434 to 1498 inners between hosts, thread counts and packages)
+CONFIG_F32_INNER_RTOL = 0.05
+# (u7): heat1d's final norm apart by at most this much a step between the
+# card and the CPU (the march's tol_abs, ROADMAP Queue 3 item 18)
+HEAT1D_NORM_TOL = 6e-6
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -1448,7 +1489,7 @@ def _gate_decay(torch, tag, u, u0, g, steps):
 
 def phase_heat_cheb(torch, nkt):
     """Path (l): the 2-D heat equation at 2048², a = 0.01, u₀ =
-    sin(πx)sin(πy), 6 backward-Euler steps of Δt = 0.05 (8,400× the
+    sin(πx)sin(πy), 5 backward-Euler steps of Δt = 0.05 (8,400× the
     explicit limit) through ``integrate`` with Cheb-PCG:
     ``chebyshev(16, bounds=(−1 − 8o, −1))``, the probed Gershgorin box of
     J = −I + o·S, built once a step (one K4 launch per apply on the card).
@@ -1569,25 +1610,26 @@ def phase_heat_dst_scan(torch, nkt, u_cheb):
 
 
 def phase_heat_drivers(torch, nkt):
-    """Path (n) at 256², DST-PCG: a 10-step ``integrate`` march with
-    ``checkpoint_every=5`` into a temporary directory is the uninterrupted
-    reference; ``integrate_scan`` over 5 steps equals its ``march_5``
-    snapshot bit for bit; with ``march_10`` removed, the march resumed from
-    ``march_5`` runs only the remaining 5 steps and ends on the reference's
-    state bit for bit (15 and 10 steps before PR 9's trims)."""
+    """Path (n) at 256², DST-PCG: a 6-step ``integrate`` march with
+    ``checkpoint_every=3`` into a temporary directory is the uninterrupted
+    reference; ``integrate_scan`` over 3 steps equals its ``march_3``
+    snapshot bit for bit; with ``march_6`` removed, the march resumed from
+    ``march_3`` runs only the remaining 3 steps and ends on the reference's
+    state bit for bit (it ran 15 and 10 steps, then 10 and 5, before the
+    later paths needed the time)."""
     import tempfile
 
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
     from newtonkrylov_tpu_torch.problems import heat2d
     from newtonkrylov_tpu_torch.utils.checkpointing import load_checkpoint
 
-    n, steps, k = HEAT_SMALL_N, 10, 5
+    n, steps, k = HEAT_SMALL_N, 6, 3
     p, _, u0, _ = _heat_setup(torch, n)
     kw = _heat_kwargs(fft_poisson())
     with tempfile.TemporaryDirectory() as d:
         full = nkt.integrate("euler", heat2d.rhs, u0, p, HEAT_DT, HEAT_DT * steps,
                              newton_kwargs=kw, checkpoint_dir=d,
-                             checkpoint_every=5)
+                             checkpoint_every=k)
         written = sorted(os.listdir(d))
         scan = nkt.integrate_scan("euler", heat2d.rhs, u0, p, HEAT_DT, k,
                                   newton_kwargs=kw)
@@ -2820,7 +2862,7 @@ def _example_worker(name, size):
     return result, buf.getvalue(), time.perf_counter() - t0
 
 
-def phase_examples(torch):
+def phase_examples(torch, after_examples=None):
     """Path (t): every example of the port's gallery through its ``main``
     on the card at :data:`EXAMPLE_SIZES`, each gated as its JAX counterpart
     asserts or prints as expected (:func:`_gate_examples`), with its wall,
@@ -2830,8 +2872,9 @@ def phase_examples(torch):
     ``bratu_2d_cuda`` in this one, whose K1/K2 counts the caller reads;
     beside them the four unsharded walkthroughs run on the card, one
     subprocess each (``--device cuda --no-figures``), and must end with
-    their assertions held.  Every child runs one host thread.  Returns the
-    examples' dicts."""
+    their assertions held.  Every child runs one host thread.
+    ``after_examples()`` is called when the examples have ended, while the
+    walkthroughs may still run.  Returns the examples' dicts."""
     import multiprocessing
     import shutil
     import tempfile
@@ -2880,6 +2923,8 @@ def phase_examples(torch):
             results[name] = r
         log(f"[examples] the examples ended {time.perf_counter() - t_start:.1f} s "
             "after the phase began")
+        if after_examples is not None:
+            after_examples()
         while len(ended) < len(procs):
             for name, proc in procs.items():
                 if name not in ended and proc.poll() is not None:
@@ -2909,6 +2954,196 @@ def phase_examples(torch):
                 proc.kill()
                 proc.wait()
         shutil.rmtree(logdir, ignore_errors=True)
+
+
+def phase_k4_xl(torch, nkt, bratu2d):
+    """K4 against its plain version at XL_N² f32, degree K4_XL_DEGREE (the
+    two-grid smoother's): seeded random input with random ghosts, the
+    interval and diagonal of the probed Bratu Jacobian at u₀; bit for bit.
+    Returns |kernel − plain| (0) for the kernels JSON."""
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
+    from newtonkrylov_tpu_torch.mg import probe_5point
+    from newtonkrylov_tpu_torch.precond import _cheb_bounds
+
+    n, dt, dev = XL_N, torch.float32, torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    v = torch.randn((n + 8, k.round_up(n + 2, 128)), generator=gen, device=dev,
+                    dtype=dt)
+    J = nkt.JacobianOperator(bratu2d.residual_scaled,
+                             bratu2d.initial_guess(n, dt, dev),
+                             bratu2d.default_config(n, LAM))
+    o, d = probe_5point(J)
+    theta, delta = _cheb_bounds(o, d.min(), d.max(), None, 1 / 300, dt)
+    diag, scal = k.aligned_wrap(d / o), torch.stack([theta, delta, o])
+    del J
+    got = k.chebyshev_apply(v, diag, scal, n, K4_XL_DEGREE)
+    ref = k.chebyshev_apply_xla(v, diag, scal, n, K4_XL_DEGREE)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    plan = k._tile_plan("chebyshev_apply", n, dt, K4_XL_DEGREE)
+    log(f"[k4 xl] n={n} f32 degree {K4_XL_DEGREE} on {tuple(v.shape)} "
+        f"({v.numel() * 4 / 2**20:.1f} MiB): max|K4 − plain| {err:.3e}, "
+        f"{plan.passes(K4_XL_DEGREE)} pass(es), tile {plan.tile_h}x"
+        f"{plan.tile_w}; per call {_time_ms(lambda: k.chebyshev_apply(v, diag, scal, n, K4_XL_DEGREE), 5):.4f} ms (CUDA events)")
+    if not _bitwise_equal(torch, got, ref):
+        raise AssertionError(f"K4 at {n}² degree {K4_XL_DEGREE} differs from "
+                             f"its plain version, max|err| {err:.3e}")
+    return err
+
+
+def _large_lane(tag, n, ref, timed, profile):
+    """One lane of path (u) through ``xl8192.run_lane`` (gated there:
+    solved, the f64 true residual at most the clamped tolerance, K4 two
+    launches an apply on the pallas lane), logged beside its TPU record."""
+    from newtonkrylov_tpu_torch.benchmarks import xl8192
+
+    rec = xl8192.run_lane(tag, n, "cuda", k_hi=2, repeats=1, timed=timed,
+                          profile=profile, log=log)
+    log(f"[large side] {tag} {n}²: outer/inner {rec['outer']}/{rec['inner']} "
+        f"beside the JAX package's TPU record {ref[0]}/{ref[1]} (a count, not "
+        f"a time); floor_limited={rec['floor_limited']}"
+        + (f", marginal {rec['marginal_s'] * 1e3:.1f} ms/solve" if timed else "")
+        + (f", peak {rec['peak_mib']:.1f} MiB" if "peak_mib" in rec else "")
+        + (f", busy {100 * rec['busy_share']:.1f}%" if "busy_share" in rec else ""))
+    return rec
+
+
+def phase_large_side(torch):
+    """(u1)-(u4): the DST flagship, MG-PCG and two-grid (both engines) at
+    LARGE_N², then the 8192² lanes through ``xl8192.run``.  Returns the
+    records and the preconditioner applies of the pallas lanes."""
+    out = {"u1": _large_lane("DST flagship", LARGE_N,
+                             LARGE_TPU_REF["DST flagship"], True, False)}
+    out["u2"] = _large_lane("MG-PCG", LARGE_N, LARGE_TPU_REF["MG-PCG"],
+                            False, False)
+    out["u3"] = [_large_lane(tag, LARGE_N, LARGE_TPU_REF["two-grid"], False,
+                             False) for tag in ("two-grid", "two-grid pallas")]
+    out["u4"] = [_large_lane(tag, XL_N, XL_TPU_REF[tag.split(" ")[0]], True,
+                             True)
+                 for tag in ("MG-PCG", "two-grid", "two-grid pallas")]
+    return out
+
+
+def phase_floor(torch):
+    """(u5) ``floor_probe`` at FLOOR_SIZES: the df32 plateau and the probes;
+    ``floor_estimate(u₀)`` at or above the plateau at each size."""
+    from newtonkrylov_tpu_torch.benchmarks import floor_probe
+
+    recs = floor_probe.run(FLOOR_SIZES, "cuda", log=log)
+    for r in recs:
+        est = r["probes_u0"]["jvp"]
+        if not est >= r["plateau"]:
+            raise AssertionError(
+                f"floor probe n={r['n']}: floor_estimate(u0) {est:.4e} below "
+                f"the measured plateau {r['plateau']:.4e} (probe/plateau "
+                f"{r['ratio_u0']:.3f}): the guard's calibration is wrong here")
+    return recs
+
+
+def phase_solve_profile(torch):
+    """(u6) ``solve_profile`` at PROFILE_N²: each phase's host and device
+    ms, their sum against the whole outer, and the flagship's counts."""
+    from newtonkrylov_tpu_torch.benchmarks import solve_profile
+
+    rec = solve_profile.run(PROFILE_N, "cuda", reps=5, log=log)
+    if not rec["solved"] or rec["counts"] != CG_FLAGSHIP:
+        raise AssertionError(f"solve_profile: the flagship took "
+                             f"{rec['counts']}, not {CG_FLAGSHIP}")
+    return rec
+
+
+def _gate_configs(card, cpu):
+    """(u7) ``run_configs`` on the card against the port's CPU record: the
+    f64 solves' counts equal (heat1d's GMRES march within one outer a step
+    and its final norm within HEAT1D_NORM_TOL a step, ROADMAP Queue 3 item
+    18); Bratu 256² (f32 Krylov) its outer count equal and its inner count
+    within CONFIG_F32_INNER_RTOL."""
+    def counts(r):
+        return (r["solved"], r["outer"], r["inner"])
+
+    checks = {
+        "simple_gmres": lambda a, b: counts(a) == counts(b),
+        # GMRES marches part by one outer a step between the card and the
+        # CPU (ROADMAP Queue 3 item 18): every step solved, one outer apart
+        "heat1d_implicit_euler": lambda a, b: (
+            (a["n_steps"], a["n_failed"]) == (b["n_steps"], b["n_failed"])
+            and max(abs(x - y) for x, y in zip(a["outer_per_step"],
+                                               b["outer_per_step"])) <= 1
+            and abs(a["final_norm"] - b["final_norm"])
+            <= HEAT1D_NORM_TOL * a["n_steps"]),
+        "bvp_fgmres_linesearch": lambda a, b: counts(a) == counts(b),
+        "bratu2d_ew": lambda a, b: (
+            a["solved"] and a["outer"] == b["outer"]
+            and abs(a["inner"] - b["inner"]) <= CONFIG_F32_INNER_RTOL * b["inner"]),
+        "bratu1d_multipartition": lambda a, b: (
+            counts(a) == counts(b) and a["matches_single_device"]
+            and a["n_partitions"] == 1
+            and a["single_device_inner"] == b["single_device_inner"]),
+    }
+    bad = []
+    for name, ok in checks.items():
+        a, b = card[name], cpu[name]
+        keys = [k for k in a if k not in ("residual_history", "outer_per_step")]
+        log(f"[run_configs] {name}: card " + json.dumps({k: a[k] for k in keys})
+            + " | cpu record " + json.dumps({k: b[k] for k in keys if k in b}))
+        if "outer_per_step" in a:
+            log(f"[run_configs] {name}: outers a step, card {a['outer_per_step']}"
+                f" | cpu record {b['outer_per_step']}")
+        if not ok(a, b):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"run_configs on the card differ from the CPU "
+                             f"record: {bad}")
+
+
+def start_run_configs(workdir):
+    """Start (u7): ``python -m newtonkrylov_tpu_torch.benchmarks.run_configs
+    --device cuda`` in a process of its own (one host thread), its record to
+    ``workdir``.  Host-bound and kernel-free, it runs beside path (t)'s last
+    walkthrough; :func:`phase_run_configs` waits for it and gates it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep) if q])
+    out = os.path.join(workdir, "run_configs.json")
+    logf = open(os.path.join(workdir, "run_configs.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "newtonkrylov_tpu_torch.benchmarks.run_configs",
+         "--device", "cuda", "--out", out],
+        stdout=logf, stderr=subprocess.STDOUT, cwd=root, env=env)
+    logf.close()
+    return proc, out, time.perf_counter()
+
+
+def phase_run_configs(torch, started):
+    """(u7) The five BASELINE configurations on the card — configs 1-4, and
+    config 5 on a world-1 NCCL group, in the process
+    :func:`start_run_configs` started — against the port's committed CPU
+    record (:func:`_gate_configs`)."""
+    from newtonkrylov_tpu_torch.benchmarks import run_configs
+
+    proc, out, t0 = started
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(os.path.dirname(out), "run_configs.log")) as f:
+        for line in f.read().splitlines():
+            if "Warning" not in line and "warnings.warn" not in line:
+                log(f"[run_configs] | {line}")
+    log(f"[run_configs] exit code {proc.returncode}, ended "
+        f"{time.perf_counter() - t0:.1f} s after it started")
+    if proc.returncode != 0:
+        raise AssertionError(f"run_configs failed on the card (exit code "
+                             f"{proc.returncode})")
+    with open(out) as f:
+        card = json.load(f)
+    with open(run_configs.OUT) as f:
+        cpu = json.load(f)
+    _gate_configs(card, cpu)
+    return card
 
 
 def main() -> int:
@@ -3113,24 +3348,66 @@ def main() -> int:
         info_c, heat_counts))
     log(f"[summary] path (q): {time.perf_counter() - t0:.1f} s")
 
-    # this slice's path (t): the example gallery and the walkthroughs on the
-    # card; bratu_2d_cuda's refined CG lane launches K1 every matvec and K2
-    # every residual, and the kernels JSON counts them beside the main path's
-    t0 = time.perf_counter()
-    t_launches = {}
-    gallery = counted("examples", ("stencil_jvp", "bratu_residual"),
-                      lambda: phase_examples(torch), into=t_launches)
-    lane = gallery["bratu_2d_cuda"]["refined_cg"]
-    log(f"[launches] examples: K1 {t_launches['stencil_jvp']} launches "
-        f"(bratu_2d_cuda's refined CG lane: {lane['outer']} / {lane['inner']}, "
-        f"its own count {lane['launches']}), K2 {t_launches['bratu_residual']}")
-    if t_launches["stencil_jvp"] < lane["inner"]:
-        raise AssertionError("K1 launched fewer times than bratu_2d_cuda's "
-                             "refined CG inner iterations")
-    for key in ("stencil_jvp", "bratu_residual"):
-        launches[key] += t_launches[key]
-    del gallery
-    log(f"[summary] path (t): {time.perf_counter() - t0:.1f} s")
+    # path (u)'s (u7), host-bound and kernel-free, runs in a process of its
+    # own from the end of path (t)'s examples, beside its last walkthrough
+    u7_dir, u7 = tempfile.mkdtemp(prefix="chip_smoke_u7_"), {}
+    try:
+        # this slice's path (t): the example gallery and the walkthroughs on
+        # the card; bratu_2d_cuda's refined CG lane launches K1 every matvec
+        # and K2 every residual, and the kernels JSON counts them beside the
+        # main path's
+        t0 = time.perf_counter()
+        t_launches = {}
+        gallery = counted(
+            "examples", ("stencil_jvp", "bratu_residual"),
+            lambda: phase_examples(torch, lambda: u7.update(
+                proc=start_run_configs(u7_dir))), into=t_launches)
+        lane = gallery["bratu_2d_cuda"]["refined_cg"]
+        log(f"[launches] examples: K1 {t_launches['stencil_jvp']} launches "
+            f"(bratu_2d_cuda's refined CG lane: {lane['outer']} / "
+            f"{lane['inner']}, its own count {lane['launches']}), K2 "
+            f"{t_launches['bratu_residual']}")
+        if t_launches["stencil_jvp"] < lane["inner"]:
+            raise AssertionError("K1 launched fewer times than bratu_2d_cuda's "
+                                 "refined CG inner iterations")
+        for key in ("stencil_jvp", "bratu_residual"):
+            launches[key] += t_launches[key]
+        del gallery
+        log(f"[summary] path (t): {time.perf_counter() - t0:.1f} s")
+
+        # this slice's path (u): the large-side regime and the programs that
+        # measure it; K4 runs the "pallas" two-grid lanes' smoothing (two
+        # launches an apply), and the kernels JSON counts them with the rest.
+        # (u7) is gated first: nothing else runs beside the timed lanes
+        t0 = time.perf_counter()
+        counted("run_configs (u7)", (),
+                lambda: phase_run_configs(torch, u7["proc"]))
+    finally:
+        if "proc" in u7 and u7["proc"][0].poll() is None:
+            u7["proc"][0].kill()
+            u7["proc"][0].wait()
+        shutil.rmtree(u7_dir, ignore_errors=True)
+    err = phase_k4_xl(torch, nkt, bratu2d)  # before the counts are zeroed
+    summary["chebyshev_apply"] = (max(summary["chebyshev_apply"][0], err),
+                                  *summary["chebyshev_apply"][1:])
+    u_launches = {}
+    large = counted("large-side regime (u1-u4)", ("chebyshev_apply",),
+                    lambda: phase_large_side(torch), into=u_launches)
+    pallas = [r for r in (*large["u3"], *large["u4"])
+              if r["lane"] == "two-grid pallas"]
+    applies = sum(r["applies"] for r in pallas)
+    log(f"[launches] large-side regime: K4 {u_launches['chebyshev_apply']} "
+        f"launches on the two-grid pallas lanes at {LARGE_N}² and {XL_N}², "
+        f"against {applies} preconditioner applies of their first solves "
+        f"(the timed and profiled solves add as many again)")
+    if any(r["k4_launches"] != 2 * r["applies"] for r in pallas):
+        raise AssertionError("K4 launches on path (u)'s pallas lanes are not "
+                             "two per two-grid apply")
+    launches["chebyshev_apply"] += u_launches["chebyshev_apply"]
+    del large
+    counted("floor probe (u5)", (), lambda: phase_floor(torch))
+    counted("solve profile (u6)", (), lambda: phase_solve_profile(torch))
+    log(f"[summary] path (u): {time.perf_counter() - t0:.1f} s")
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
     # only two-grid with engine="pallas" runs a hand-written kernel (K4)

@@ -340,8 +340,12 @@ def selfcheck(device=None) -> bool:
 
 
 # The JAX package's measured probe/plateau ratio on the 2-D Bratu flagship
-# (6.28–6.38× over 512²–4096²); dividing by 4 places the estimate at ~1.6×
-# the plateau.  Kept identical so both packages clamp at the same tolerance.
+# (6.28–6.38× over 512²–4096² on a TPU); dividing by 4 places the estimate
+# at ~1.6× the plateau.  On an NVIDIA H100 80GB HBM3 at its 700.00 W power
+# limit the port measured 6.326, 6.314, 6.319 and 6.284 at 512², 1024²,
+# 2048² and 4096² (benchmarks/floor_probe.py, plateaus 1.152e-12 to
+# 9.265e-12): the same calibration holds there.  Kept identical so both
+# packages clamp at the same tolerance.
 _RND_PROBE_CALIBRATION = 4.0
 
 
