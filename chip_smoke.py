@@ -12,14 +12,18 @@ Phases (each raises on failure; the script exits non-zero after any):
    in parallel (one ``nvcc`` each);
 2. K1 and K2 against their plain PyTorch versions on the card, in f32 and
    f64 at n = 2048 and n = 64 (K1 exactly equal, K2 within 4 ulp), the
-   2048² f32 case timed per call (CUDA events) and in device time alone
-   (torch.profiler);
+   2048² f32 case timed by three clocks (``_clocks``: torch.profiler's
+   device time, CUDA events around back-to-back calls, CUDA events around
+   the replay of one CUDA graph of the same calls) with the host time to
+   issue a call; the kernels JSON takes the graph replay, which takes host
+   issue out;
 3. the chain kernels K3 (k = 0, 1, 2, 7, 33, 200), K5 (k = 2, 200) and K4
    (degree 0, 1, 4, 16, 40, on the interval of a probed Bratu Jacobian)
    against their plain versions, bit for bit, at the same sizes and dtypes
    on the same seeded inputs with random ghosts and apron (so the tiles'
    wrapped halos are exercised; k = 33, 200 and degree 40 take several
-   passes), the 2048² f32 cases timed the same way;
+   passes), the 2048² f32 cases timed per call (CUDA events) and in device
+   time (torch.profiler), K4 at degree 16 by the three clocks of phase 2;
 4. the probe kernel K6 (overlapped tiles, passes of at most 16 steps)
    against its plain version, bit for bit: each of the JAX probe's 20
    variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed per call, and
@@ -81,8 +85,9 @@ Phases (each raises on failure; the script exits non-zero after any):
     max|u − u*| ≤ 1e-6; (k) convection–diffusion c = 25 + ILU(0) at 64² in
     f64 on the card against the CPU;
 14. warm repeats (Cheb-PCG at 2048², and at 1024², its lane's own size,
-    convection–diffusion at 512², the flagship with a native f64 residual
-    beside the df32 flagship, in turns), the aligned and the
+    the flagship with a native f64 residual beside the df32 flagship, in
+    turns; convection–diffusion at 512² is repeated by path (v3), which
+    runs before the breakdowns), the aligned and the
     convection–diffusion solves (c = 2, and ADI(4) and MG-general at c = 25
     on PCR) at 64² against the same solves on the CPU, and breakdowns: each
     component's cost alone and the device busy time of the flagship,
@@ -153,7 +158,9 @@ Phases (each raises on failure; the script exits non-zero after any):
     inner count), ``sharded_bratu`` on a world-1 NCCL group — each gated as
     its JAX counterpart asserts or prints as expected, with its wall and
     counts logged; beside them the four unsharded walkthroughs run with
-    ``--device cuda --no-figures``, one subprocess each;
+    ``--device cuda --no-figures``, one subprocess each (heat1d_dg, the
+    longest, started before path (l), so that it runs beside paths
+    (l)-(q) and ends with the examples);
 20. path (u), run just after path (t): the large-side regime through the
     port's measuring programs (``newtonkrylov_tpu_torch/benchmarks``), the
     flagship configuration (λ = 5, f32 CG + df32, ``tol_rel=1e-8``,
@@ -173,11 +180,27 @@ Phases (each raises on failure; the script exits non-zero after any):
     flagship's 6 / 7 and each phase's host and device ms; (u7)
     ``run_configs`` — the five BASELINE configurations, config 5 on a
     world-1 NCCL group — in a process of its own (host-bound, no kernel)
-    started when path (t)'s examples end, beside its last walkthrough, and
-    gated first in path (u), before its timed lanes, against the port's
-    committed CPU record.
+    started with path (t), beside its examples and walkthroughs, and gated
+    first in path (u), before its timed lanes, against the port's committed
+    CPU record;
+21. path (v), after the warm repeats: the design decisions the port took
+    over from the JAX package, measured on the card.  (v1) one DST apply of
+    each engine (four f32 sine-basis products, ``method="matmul"``; FFTs,
+    ``method="fft"``) at 512²–4096² and of the FFT engine at 8192², by the
+    three clocks, the engines within 1e-4 (relative l2); the flagship on
+    each engine at 2048² and 4096² (the FFT engine in the products' outer
+    count) and on the FFT engine at 8192², each gated on ``solved`` and its
+    f64 true residual under the clamped tolerance; (v2) the df32 acceptance
+    residual against a native f64 one at 2048² (three clocks), one outer
+    of each configuration by ``solve_profile``'s phase split, beside the
+    walls of phase 14's native-f64 and df32 flagships; (v3) the 512²
+    convection–diffusion lane with CGS2, MGS and CGS2 in 32-row chunks,
+    each under the lane's gate, the blocked CGS2 in the unblocked one's
+    outer count and its inner count within 1%, and one orthogonalization of
+    each against 101 and 301 active rows of the lane's basis (three
+    clocks).  Path (v) launches no hand-written kernel.
 
-Launch counts are zeroed just before each of phases 6–13 and 15–20 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–21 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
 the two Cheb-PCG paths at 2048², the Ψtc path, the heat march and path
@@ -275,6 +298,9 @@ EXAMPLE_SIZES = {
 # the sharded one needs W ranks (NCCL refuses two on one card), and
 # sharded_bratu on a world-1 group stands in for it
 WALKTHROUGHS = ("diagnostics", "heat1d_dg", "heat2d", "precision")
+# started before path (l): ~225 s on the card's host, 75 s more than the
+# examples beside which it would otherwise run
+EARLY_WALKTHROUGHS = ("heat1d_dg",)
 EXAMPLE_WORKERS = 3
 EXAMPLE_ORDER = ("convdiff_2d", "bratu_1d", "heat_1d", "ptc_globalization",
                  "bvp_kelley", "heat_1d_dg", "continuation_bratu",
@@ -298,6 +324,27 @@ CONFIG_F32_INNER_RTOL = 0.05
 # (u7): heat1d's final norm apart by at most this much a step between the
 # card and the CPU (the march's tol_abs, ROADMAP Queue 3 item 18)
 HEAT1D_NORM_TOL = 6e-6
+
+# Path (v): the design decisions the port took over from the JAX package,
+# measured on the card.  (v1) the DST engines: both at DST_SIDES, the FFT
+# engine alone at XL_N (past fftprec._MATMUL_MAX_N), their applies within
+# DST_ENGINE_RTOL (relative l2, f32: each engine rounds ~1e-6 of its own);
+# (v3) the orthogonalizations of the convection-diffusion lane, the blocked
+# CGS2 at the JAX package's own chunk for that lane
+# (newtonkrylov_tpu/problems/convdiff2d.py:47), one orthogonalization
+# timed at ORTHO_KS active rows of the lane's 601-row basis
+DST_SIDES = (512, 1024, 2048, 4096)
+DST_ENGINE_RTOL = 1e-4
+ORTHO_BLOCK = 32
+ORTHO_KS = (100, 300)
+# (v3): blocked and unblocked CGS2 sum their projections and combinations
+# in another order, and on this lane their inner counts part by rounding
+# alone (5 / 844 against 5 / 847 on an H100; ROADMAP Queue 3 item 26): the
+# blocked solve is held to the unblocked one's outer count and its inner
+# count within this fraction
+ORTHO_BLOCK_INNER_RTOL = 0.01
+ORTHO_VARIANTS = (("cgs2", "cgs2", None), ("mgs", "mgs", None),
+                  (f"cgs2 block {ORTHO_BLOCK}", "cgs2", ORTHO_BLOCK))
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -368,6 +415,67 @@ def _device_ms(fn, reps=REPS):
 
     _, total_us = _profile(loop)
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def _clocks(fn, reps=REPS, replays=3):
+    """One call of ``fn`` by three clocks, after a warm-up: ``profiler``,
+    the device time of ``reps`` back-to-back calls under torch.profiler (the
+    events that ran on the card, summed) over ``reps``, with ``device_events``
+    a call; ``events``, CUDA events around ``reps`` back-to-back calls issued
+    from the host, so that a call the host issues more slowly than the card
+    runs it reads the host's rate; ``graph``, CUDA events around ``replays``
+    replays of one CUDA graph that holds the same ``reps`` calls, which takes
+    host issue out: the clock the kernels JSON and path (v) take.
+    ``host_us``: host µs to issue one call (the host clock around the
+    back-to-back calls, stopped before the device is drained).  All ms per
+    call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    out = {"events": start.elapsed_time(end) / reps, "host_us": host_us}
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    counts = {}
+    _, total_us = _profile(loop, counts)
+    out["profiler"] = total_us / 1e3 / reps if total_us > 0 else None
+    out["device_events"] = sum(counts.values()) / reps
+    side = torch.cuda.Stream()  # a warm call off the default stream first
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        loop()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    out["graph"] = start.elapsed_time(end) / (replays * reps)
+    return out
+
+
+def _fmt_clocks(c):
+    return (f"profiler {_fmt_ms(c['profiler'])} ({c['device_events']:.1f} device "
+            f"events a call), CUDA events back to back {_fmt_ms(c['events'])}, "
+            f"CUDA graph replay {_fmt_ms(c['graph'])}; host {c['host_us']:.1f} "
+            f"us to issue a call")
 
 
 def _wall_s(torch, fn, reps=3):
@@ -515,19 +623,16 @@ def phase_kernels(torch):
             }
             times = {}
             for name, (kern, plain) in calls.items():
-                # per call on the device timeline (host dispatch included),
-                # then device time alone (profiler)
-                times[name] = t, p, td, pd = (_time_ms(kern), _time_ms(plain),
-                                              _device_ms(kern), _device_ms(plain))
-                log(f"[kernels] {tag}: {name} per call {t:.4f} ms vs plain "
-                    f"{p:.4f} ms (CUDA events, back-to-back calls); device "
-                    f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
+                # the three clocks of _clocks; the kernels JSON takes the
+                # graph replay (for these short calls the host takes longer
+                # to issue a call than the card to run it)
+                times[name] = ck, cp = _clocks(kern), _clocks(plain)
+                log(f"[clocks] {tag}: {name} kernel: {_fmt_clocks(ck)}")
+                log(f"[clocks] {tag}: {name} plain: {_fmt_clocks(cp)}")
             for name, key, err in (("K1", "stencil_jvp", err1),
                                    ("K2", "bratu_residual", err2)):
-                t, p, td, pd = times[name]
-                # device time where the profiler gives it, else events
-                summary[key] = (err, td if td is not None else t,
-                                pd if pd is not None else p)
+                ck, cp = times[name]
+                summary[key] = (err, ck["graph"], cp["graph"])
     return summary
 
 
@@ -583,14 +688,29 @@ def phase_chain_kernels(torch, nkt, bratu2d):
                 f"{plan.passes(steps)} pass(es), tile {plan.tile_h}x"
                 f"{plan.tile_w}, S {plan.steps_per_pass}, smem "
                 f"{plan.smem_bytes} B, {plan.threads()} threads")
-            if n == N and dt == torch.float32:  # the timed cases
+            if n == N and dt == torch.float32 and key == "chebyshev_apply":
+                if steps == 16:  # K4's timed call: the three clocks
+                    ck, cp = _clocks(kern), _clocks(plain)
+                    log(f"[clocks] {tag}: K4 degree 16 kernel: {_fmt_clocks(ck)}")
+                    log(f"[clocks] {tag}: K4 degree 16 plain: {_fmt_clocks(cp)}")
+                    # the same call on inputs rotated over four sets, more
+                    # than the L2 cache holds, as a solve's come cold
+                    sets = [(torch.randn_like(v), diag.clone()) for _ in range(4)]
+                    turn = iter(range(10**9))
+                    cold = _clocks(lambda: k.chebyshev_apply(
+                        *sets[next(turn) % 4], scal, n, 16), 4 * 12)
+                    log(f"[clocks] {tag}: K4 degree 16 kernel, inputs rotated "
+                        f"over 4 sets: {_fmt_clocks(cold)}")
+                    del sets
+                    timed[key] = (ck["graph"], cp["graph"])
+            elif n == N and dt == torch.float32:  # the timed cases
                 reps = _reps(steps)
                 t, p = _time_ms(kern, reps), _time_ms(plain, reps)
                 td, pd = _device_ms(kern, reps), _device_ms(plain, reps)
                 log(f"[chain kernels] {tag}: {short} steps={steps} per call "
                     f"{t:.4f} ms vs plain {p:.4f} ms (CUDA events); device "
                     f"time kernel {_fmt_ms(td)} vs plain {_fmt_ms(pd)}")
-                if steps in (CHAIN[0], 16):
+                if steps == CHAIN[0]:
                     timed[key] = (td if td is not None else t,
                                   pd if pd is not None else p)
     return {key: (errs[key], *timed[key]) for key in errs}
@@ -1866,11 +1986,12 @@ def phase_native_f64_flagship(torch, nkt, bratu2d):
     the df32 flagship, on one card in turns (native, df32, native, df32):
     counts, walls, ``floor_limited`` and the f64 true residual.  Each solve
     is gated on ``solved`` and its true residual (``_df32_solve``'s gate for
-    the df32 one)."""
+    the df32 one).  Returns a row per solve for path (v2)."""
     from newtonkrylov_tpu_torch.fftprec import fft_poisson
 
     p = bratu2d.default_config(N, lam=LAM)
     u0 = bratu2d.initial_guess(N, dtype=torch.float32, device="cuda").to(torch.float64)
+    rows = []
     for turn in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1889,7 +2010,14 @@ def phase_native_f64_flagship(torch, nkt, bratu2d):
         if not (bool(info.solved) and fu <= 1e-8 * f0 + 1e-12):
             raise AssertionError("flagship with a native f64 residual: not "
                                  "solved, or true residual above 1e-8·‖F₀‖")
-        phase_flagship(torch, nkt, bratu2d, f"df32 turn {turn}")
+        keep = {}
+        info_df = phase_flagship(torch, nkt, bratu2d, f"df32 turn {turn}", keep)
+        for tag, i, t in (("native f64", info, wall), ("df32", info_df, keep["wall"])):
+            rows.append({"acceptance": tag, "turn": turn, "wall": t,
+                         "outer": i.stats.outer_iterations,
+                         "inner": i.stats.inner_iterations,
+                         "floor_limited": bool(i.floor_limited)})
+    return rows
 
 
 def phase_chain_lane(torch, bratu2d):
@@ -2862,7 +2990,27 @@ def _example_worker(name, size):
     return result, buf.getvalue(), time.perf_counter() - t0
 
 
-def phase_examples(torch, after_examples=None):
+def start_walkthroughs(names, logdir):
+    """Start the walkthroughs ``names`` on the card, one subprocess each
+    (``run_walkthroughs --device cuda --no-figures``, one host thread), each
+    writing to a log in ``logdir``; returns {name: (process, log path)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep) if q])
+    procs = {}
+    for name in names:
+        path = os.path.join(logdir, f"{name}.log")
+        with open(path, "w") as f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m",
+                 "newtonkrylov_tpu_torch.docs.run_walkthroughs",
+                 "--device", "cuda", "--no-figures", name],
+                stdout=f, stderr=subprocess.STDOUT, cwd=root, env=env), path)
+    return procs
+
+
+def phase_examples(torch, early):
     """Path (t): every example of the port's gallery through its ``main``
     on the card at :data:`EXAMPLE_SIZES`, each gated as its JAX counterpart
     asserts or prints as expected (:func:`_gate_examples`), with its wall,
@@ -2871,10 +3019,10 @@ def phase_examples(torch, after_examples=None):
     ``EXAMPLE_WORKERS`` at a time in spawned processes, and
     ``bratu_2d_cuda`` in this one, whose K1/K2 counts the caller reads;
     beside them the four unsharded walkthroughs run on the card, one
-    subprocess each (``--device cuda --no-figures``), and must end with
-    their assertions held.  Every child runs one host thread.
-    ``after_examples()`` is called when the examples have ended, while the
-    walkthroughs may still run.  Returns the examples' dicts."""
+    subprocess each (:func:`start_walkthroughs`; those in ``early``, its
+    result, were started before this phase), and must end with their
+    assertions held.  Every child runs one host thread.  Returns the
+    examples' dicts."""
     import multiprocessing
     import shutil
     import tempfile
@@ -2882,30 +3030,22 @@ def phase_examples(torch, after_examples=None):
 
     from newtonkrylov_tpu_torch import examples
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep) if q])
     logdir = tempfile.mkdtemp(prefix="chip_smoke_t_")
-    procs, ended = {}, {}
+    procs, ended = dict(early), {}
     t_start = time.perf_counter()
     old_threads = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"  # inherited by the spawned pool
     pool = ProcessPoolExecutor(EXAMPLE_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     try:
-        for name in WALKTHROUGHS:
-            with open(os.path.join(logdir, f"{name}.log"), "w") as f:
-                procs[name] = subprocess.Popen(
-                    [sys.executable, "-m",
-                     "newtonkrylov_tpu_torch.docs.run_walkthroughs",
-                     "--device", "cuda", "--no-figures", name],
-                    stdout=f, stderr=subprocess.STDOUT, cwd=root, env=env)
-        log(f"[examples] started the walkthroughs {', '.join(WALKTHROUGHS)} "
-            "on the card, one process each; sharded_bratu on a world-1 NCCL "
-            "group stands in for the sharded walkthrough, whose W ranks need "
-            f"W cards; the examples {EXAMPLE_WORKERS} at a time in spawned "
-            "processes, bratu_2d_cuda in this one")
+        procs.update(start_walkthroughs(
+            [name for name in WALKTHROUGHS if name not in early], logdir))
+        log(f"[examples] the walkthroughs {', '.join(WALKTHROUGHS)} run on the "
+            f"card, one process each ({', '.join(early) or 'none'} started "
+            "before path (l)); sharded_bratu on a world-1 NCCL group stands in "
+            "for the sharded walkthrough, whose W ranks need W cards; the "
+            f"examples {EXAMPLE_WORKERS} at a time in spawned processes, "
+            "bratu_2d_cuda in this one")
         local = "bratu_2d_cuda"
         futures = {name: pool.submit(_example_worker, name, EXAMPLE_SIZES[name])
                    for name in EXAMPLE_ORDER if name != local}
@@ -2923,21 +3063,20 @@ def phase_examples(torch, after_examples=None):
             results[name] = r
         log(f"[examples] the examples ended {time.perf_counter() - t_start:.1f} s "
             "after the phase began")
-        if after_examples is not None:
-            after_examples()
         while len(ended) < len(procs):
-            for name, proc in procs.items():
+            for name, (proc, _) in procs.items():
                 if name not in ended and proc.poll() is not None:
                     ended[name] = time.perf_counter() - t_start
             if time.perf_counter() - t_start > 900:
                 raise AssertionError("the walkthroughs outlasted 900 s")
             time.sleep(0.5)
-        for name, proc in procs.items():
-            out = open(os.path.join(logdir, f"{name}.log")).read()
+        for name, (proc, path) in procs.items():
+            with open(path) as f:
+                out = f.read()
             for line in out.splitlines():
                 if "Warning" not in line and "warnings.warn" not in line:
                     log(f"[walkthrough] {name} | {line}")
-            log(f"[walkthrough] {name}: exit code {proc.returncode}, ended "
+            log(f"[walkthrough] {name}: exit code {proc.returncode}, seen ended "
                 f"{ended[name]:.1f} s after the phase began")
             if proc.returncode != 0 or "   OK" not in out:
                 raise AssertionError(f"walkthrough {name} failed on the card "
@@ -2949,7 +3088,7 @@ def phase_examples(torch, after_examples=None):
             os.environ.pop("OMP_NUM_THREADS", None)
         else:
             os.environ["OMP_NUM_THREADS"] = old_threads
-        for proc in procs.values():
+        for proc, _ in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3099,8 +3238,8 @@ def _gate_configs(card, cpu):
 def start_run_configs(workdir):
     """Start (u7): ``python -m newtonkrylov_tpu_torch.benchmarks.run_configs
     --device cuda`` in a process of its own (one host thread), its record to
-    ``workdir``.  Host-bound and kernel-free, it runs beside path (t)'s last
-    walkthrough; :func:`phase_run_configs` waits for it and gates it."""
+    ``workdir``.  Host-bound and kernel-free, it runs beside path (t);
+    :func:`phase_run_configs` waits for it and gates it."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(
@@ -3144,6 +3283,252 @@ def phase_run_configs(torch, started):
         cpu = json.load(f)
     _gate_configs(card, cpu)
     return card
+
+
+def phase_dst_engines(torch, nkt, bratu2d):
+    """(v1) the DST engines.  One apply of ``fftprec.dst_poisson_solver`` in
+    f32 (``precision="high"``) on a seeded random right-hand side, with the
+    flagship's o and mean diagonal at u₀: both engines at DST_SIDES, the
+    FFT engine alone at XL_N; each by ``_clocks`` (device ms by the graph
+    replay, host ms to issue), the engines within DST_ENGINE_RTOL of each
+    other.  Then the flagship configuration through ``xl8192.run_lane``
+    (gated there: solved, the f64 true residual at most the clamped
+    tolerance) on each engine at N² and LARGE_N², the FFT engine's outer
+    count equal to the matrix products', and on the FFT engine alone at
+    XL_N² under the profiler (busy share, peak memory).  Returns the apply
+    rows and the lane records."""
+    from newtonkrylov_tpu_torch import fftprec
+    from newtonkrylov_tpu_torch.benchmarks import xl8192
+    from newtonkrylov_tpu_torch.mg import probe_5point
+
+    rows = []
+    for n in DST_SIDES + (XL_N,):
+        J = nkt.JacobianOperator(bratu2d.residual_scaled,
+                                 bratu2d.initial_guess(n, torch.float32, "cuda"),
+                                 bratu2d.default_config(n, LAM))
+        o, d = probe_5point(J)
+        dbar = d.mean()
+        del J, d
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        r = torch.randn((n, n), generator=gen, device="cuda", dtype=torch.float32)
+        engines = ("matmul", "fft") if n <= fftprec._MATMUL_MAX_N else ("fft",)
+        row, out = {"n": n}, {}
+        for method in engines:
+            apply = fftprec.dst_poisson_solver(o, dbar, (n, n), torch.float32,
+                                               method, "high")
+            out[method] = apply(r)
+            if not bool(torch.isfinite(out[method]).all()):
+                raise AssertionError(f"DST {method} apply at {n}²: non-finite")
+            row[method] = c = _clocks(lambda apply=apply: apply(r),
+                                      max(3, min(20, 20480 // n)))
+            log(f"[dst engines] {n}² {method}: {_fmt_clocks(c)}")
+            del apply
+        if len(out) == 2:
+            row["rel_l2"] = float(torch.linalg.vector_norm(out["fft"] - out["matmul"])
+                                  / torch.linalg.vector_norm(out["matmul"]))
+            if not row["rel_l2"] <= DST_ENGINE_RTOL:
+                raise AssertionError(
+                    f"DST engines at {n}²: relative l2 difference "
+                    f"{row['rel_l2']:.3e} above {DST_ENGINE_RTOL:g}")
+        rows.append(row)
+        del out, r
+    log("[dst engines] side | matmul device ms | fft device ms | fft / matmul "
+        "| host ms to issue, matmul / fft | relative l2 fft - matmul")
+    for row in rows:
+        ff = row["fft"]
+        mm = row.get("matmul")
+        if mm is None:
+            cells = ("past _MATMUL_MAX_N", f"{ff['graph']:.4f}", "-",
+                     f"- / {ff['host_us'] / 1e3:.4f}", "-")
+        else:
+            cells = (f"{mm['graph']:.4f}", f"{ff['graph']:.4f}",
+                     f"{ff['graph'] / mm['graph']:.2f}x",
+                     f"{mm['host_us'] / 1e3:.4f} / {ff['host_us'] / 1e3:.4f}",
+                     f"{row['rel_l2']:.3e}")
+        log(f"[dst engines] {row['n']}² | " + " | ".join(cells))
+
+    lanes = {}
+    for n in (N, LARGE_N):
+        for engine, tag in (("matmul", "DST flagship"), ("fft", "DST fft")):
+            lanes[engine, n] = xl8192.run_lane(tag, n, "cuda", timed=False,
+                                               profile=False, log=log)
+        mm, ff = lanes["matmul", n], lanes["fft", n]
+        if ff["outer"] != mm["outer"]:
+            raise AssertionError(
+                f"DST flagship at {n}²: the FFT engine took {ff['outer']} "
+                f"outers, the matrix products {mm['outer']}")
+    lanes["fft", XL_N] = xl8192.run_lane("DST fft", XL_N, "cuda", timed=False,
+                                         profile=True, log=log)
+    log("[dst flagship] side engine | outer / inner | floor_limited | wall of "
+        "the first solve | f64 true |F| / accepted tolerance | peak MiB | busy")
+    for (engine, n), rec in lanes.items():
+        log(f"[dst flagship] {n}² {engine} | {rec['outer']} / {rec['inner']} | "
+            f"{rec['floor_limited']} | {rec['first_s']:.3f} s"
+            + (" (profiled)" if "busy_share" in rec else "")
+            + f" | {rec['true_res']:.4e} / {rec['tol']:.4e} | "
+            + (f"{rec['peak_mib']:.1f}" if "peak_mib" in rec else "not measured")
+            + " | " + (f"{100 * rec['busy_share']:.1f}%" if "busy_share" in rec
+                       else "not measured"))
+    return rows, lanes
+
+
+def phase_precision(torch, bratu2d, native, profile):
+    """(v2) the df32 acceptance against native f64 at N²: one acceptance
+    residual (the residual and its norm) in df32 (``residual_scaled_df`` on
+    the df32 state) and in f64 (``residual_scaled`` on the f64 state) by
+    ``_clocks``; one outer of each driver configuration by
+    ``solve_profile``'s phase split, the native outer's own phases (the
+    cast of the state and residual to f32, the f64 update and the f64
+    acceptance) timed as (u6) timed its phases and the shared ones
+    (linearize, the CG iterations at (u6)'s inners per outer) taken from
+    (u6)'s record ``profile``; beside them the walls and counts of
+    ``phase_native_f64_flagship``'s turns (``native``).  Measurements only:
+    those phases hold the gates."""
+    from newtonkrylov_tpu_torch import df32 as dd
+    from newtonkrylov_tpu_torch.benchmarks import solve_profile
+    from newtonkrylov_tpu_torch.spaces import EuclideanSpace
+
+    dev, f32, f64 = torch.device("cuda", 0), torch.float32, torch.float64
+    p = bratu2d.default_config(N, lam=LAM)
+    space = EuclideanSpace()
+    u64 = bratu2d.initial_guess(N, dtype=f32, device=dev).to(f64)
+    udf = dd.df_from_f64(u64)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = 1e-6 * torch.randn((N, N), generator=gen, device=dev, dtype=f32)
+    res64 = bratu2d.residual_scaled(u64, p)
+    acc = {
+        "df32": _clocks(lambda: space.norm(bratu2d.residual_scaled_df(udf, p).hi), 20),
+        "f64": _clocks(lambda: space.norm(bratu2d.residual_scaled(u64, p)), 20),
+    }
+    for tag, c in acc.items():
+        log(f"[precision] {N}² acceptance residual {tag}: {_fmt_clocks(c)}")
+    own = {
+        "cast_down": lambda: (u64.to(f32), res64.to(f32)),
+        "acceptance_f64": lambda: space.norm(bratu2d.residual_scaled(u64, p)),
+        "f64_update": lambda: u64 - x.to(f64),
+    }
+    phases = {name: solve_profile.timed(fn, dev, 50) for name, fn in own.items()}
+    shared = profile["phases"]
+    ipo = shared["outer_body"]["inner_per_outer"]
+    parts = {
+        "df32": [("cast_down", shared["cast_down"]), ("linearize", shared["linearize"]),
+                 ("cg_iter", shared["cg_iter"]),
+                 ("acceptance", shared["acceptance_df32"]),
+                 ("update", shared["f64_update"])],
+        "native f64": [("cast_down", phases["cast_down"]),
+                       ("linearize", shared["linearize"]),
+                       ("cg_iter", shared["cg_iter"]),
+                       ("acceptance", phases["acceptance_f64"]),
+                       ("update", phases["f64_update"])],
+    }
+    log(f"[precision] one outer at {N}² by solve_profile's phase split (host "
+        f"ms / device-busy ms; the CG iterations at {ipo:.2f} an outer, "
+        f"(u6)'s; the whole df32 outer by differencing {shared['outer_body']['host']:.2f}"
+        f" / {_fmt_ms(shared['outer_body']['busy'])}):")
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    outer = {}
+    for config, rows in parts.items():
+        weight = {"cg_iter": ipo}
+        outer[config] = {
+            key: None if any(t[key] is None for _, t in rows)
+            else sum(weight.get(name, 1.0) * t[key] for name, t in rows)
+            for key in ("host", "busy")}
+        log(f"[precision]   {config}: " + ", ".join(
+            f"{name} {ms(t['host'])} / {ms(t['busy'])}" for name, t in rows)
+            + f"; outer {ms(outer[config]['host'])} / {ms(outer[config]['busy'])}")
+    log(f"[precision] flagship at {N}², f32 Krylov, DST(high) once: acceptance "
+        "| turn | outer / inner | floor_limited | wall")
+    for row in native:
+        log(f"[precision] {row['acceptance']} | {row['turn']} | {row['outer']} / "
+            f"{row['inner']} | {row['floor_limited']} | {row['wall']:.3f} s")
+    return acc, phases, outer
+
+
+def phase_orthogonalization(torch, nkt):
+    """(v3) the orthogonalizations of the CONVDIFF_N² convection–diffusion
+    lane (c = 2, DST rebuilt every outer, full GMRES with itmax 600, f32
+    Krylov + df32): CGS2 (the default), MGS and CGS2 over ORTHO_BLOCK-row
+    chunks, each gated by ``_gate_convdiff``, the blocked CGS2 in the
+    unblocked one's outer count and its inner count within
+    ORTHO_BLOCK_INNER_RTOL; then ``_ortho_steps``.  Returns the counts and
+    walls by variant, and the step timings."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+
+    n = CONVDIFF_N
+    runs = {}
+    for tag, orth, block in ORTHO_VARIANTS:
+        u, info, wall, fu, f0, err = _convdiff_solve(
+            torch, nkt, n, "cuda", fft_poisson(), 2.0, True,
+            {"restart": None, "itmax": 600, "orth": orth, "ortho_block": block},
+            max_niter=25)
+        log(f"[orthogonalization] {n}² c=2 full GMRES + DST, f32 Krylov + df32, "
+            f"{tag}: solved={bool(info.solved)} outer={info.stats.outer_iterations} "
+            f"inner={info.stats.inner_iterations} wall={wall:.3f} s  true "
+            f"|F|={fu:.4e} (limit {1e-8 * f0 + 1e-12:.4e})  max|u - u*| {err:.3e}")
+        _gate_convdiff(torch, f"convdiff {tag}", n, u, info, fu, f0, err)
+        runs[tag] = (info.stats.outer_iterations, info.stats.inner_iterations, wall)
+        del u
+    (o, i, _), (ob, ib, _) = runs["cgs2"], runs[ORTHO_VARIANTS[2][0]]
+    log(f"[orthogonalization] blocked against unblocked CGS2: {ob} / {ib} against "
+        f"{o} / {i} ({ib - i:+d} inners, limit ±{ORTHO_BLOCK_INNER_RTOL:.0%}); "
+        f"MGS {runs['mgs'][0]} / {runs['mgs'][1]}")
+    if ob != o or abs(ib - i) > ORTHO_BLOCK_INNER_RTOL * i:
+        raise AssertionError(f"blocked CGS2 took {ob} / {ib}, unblocked CGS2 "
+                             f"{o} / {i}")
+    steps = _ortho_steps(torch)
+    log("[orthogonalization] variant | outer / inner | wall | device ms of one "
+        "orthogonalization at " + " / ".join(f"{k + 1}" for k in ORTHO_KS)
+        + " active rows | host ms to issue it")
+    for tag, _, _ in ORTHO_VARIANTS:
+        o, i, wall = runs[tag]
+        log(f"[orthogonalization] {tag} | {o} / {i} | {wall:.3f} s | "
+            + " / ".join(f"{steps[tag, k]['graph']:.4f}" for k in ORTHO_KS)
+            + " | " + " / ".join(f"{steps[tag, k]['host_us'] / 1e3:.3f}"
+                                 for k in ORTHO_KS))
+    return runs, steps
+
+
+def _ortho_steps(torch):
+    """One orthogonalization of a seeded vector against ORTHO_KS active rows
+    of a seeded random basis of the (v3) lane's shape (601 rows of
+    CONVDIFF_N² f32; the blocked one's rounded up to whole chunks), by
+    ``_clocks``, for each of ORTHO_VARIANTS: the basis products of one
+    Arnoldi step."""
+    from newtonkrylov_tpu_torch.solvers.gmres import _Cycle, _pad_rows
+    from newtonkrylov_tpu_torch.spaces import EuclideanSpace
+
+    n, dev, f32, m = CONVDIFF_N, torch.device("cuda", 0), torch.float32, 600
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    w = torch.randn((n, n), generator=gen, device=dev, dtype=f32)
+    steps = {}
+    for tag, orth, block in ORTHO_VARIANTS:
+        rows = _pad_rows(m, block) if block else m + 1
+        V = torch.randn((rows, n, n), generator=gen, device=dev, dtype=f32)
+        cyc = _Cycle(None, None, None, EuclideanSpace(), m, rows, orth, False,
+                     False, 0.0, block, None, f32, dev)
+        for k in ORTHO_KS:
+            steps[tag, k] = c = _clocks(lambda k=k: cyc.orthogonalize(V, w, k), 5)
+            log(f"[orthogonalization] one {tag} step against {k + 1} of {rows} "
+                f"rows: {_fmt_clocks(c)}")
+        del V
+    return steps
+
+
+def phase_design(torch, nkt, bratu2d, native, profile):
+    """Path (v): (v1)-(v3), each gated; returns their results."""
+    t0 = time.perf_counter()
+    out = {"v1": phase_dst_engines(torch, nkt, bratu2d)}
+    log(f"[summary] (v1) DST engines: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["v2"] = phase_precision(torch, bratu2d, native, profile)
+    log(f"[summary] (v2) precision: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["v3"] = phase_orthogonalization(torch, nkt)
+    log(f"[summary] (v3) orthogonalization: {time.perf_counter() - t1:.1f} s")
+    log(f"[summary] path (v): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3318,50 +3703,54 @@ def main() -> int:
     counted("nldiff2d solve", (), lambda: phase_nldiff(torch, nkt))
     counted("convdiff c=25 + ILU0 64²", (), lambda: phase_convdiff_ilu(torch, nkt))
 
-    # this slice's paths (l)-(p): time stepping and the differentiable
-    # solve; only (l) runs a kernel (K4, one launch per Chebyshev apply)
-    heat_launches = {}
-    u_cheb, applies_heat = counted(
-        "heat march cheb-pcg", ("chebyshev_apply",),
-        lambda: phase_heat_cheb(torch, nkt), into=heat_launches)
-    k4_heat = heat_launches["chebyshev_apply"]
-    log(f"[launches] heat march cheb-pcg: K4 {k4_heat} launches = "
-        f"{applies_heat} Chebyshev preconditioner applies")
-    if k4_heat != applies_heat:
-        raise AssertionError("K4 launches on the heat march are not one per "
-                             "Chebyshev preconditioner apply")
-    launches["chebyshev_apply"] += k4_heat
-    heat_counts = counted("heat march dst integrate_scan", (),
-                          lambda: phase_heat_dst_scan(torch, nkt, u_cheb))
-    del u_cheb
-    counted("heat drivers and resume", (), lambda: phase_heat_drivers(torch, nkt))
-    counted("small problems, card against cpu", (),
-            lambda: phase_small_problems(torch, nkt))
-    counted("implicit grad", (), lambda: phase_implicit_grad(torch, nkt, bratu2d))
-
-    # this slice's path (q): the sharded solvers on a world-1 NCCL group;
-    # they run no hand-written kernel (the sharded Chebyshev exchanges
-    # ghosts between polynomial steps, which K4 cannot)
-    t0 = time.perf_counter()
-    counted("sharded solvers (nccl, world 1)", (), lambda: phase_sharded(
-        torch, nkt, bratu2d, smi, info_f, flagship.pop("u"),
-        info_c, heat_counts))
-    log(f"[summary] path (q): {time.perf_counter() - t0:.1f} s")
-
-    # path (u)'s (u7), host-bound and kernel-free, runs in a process of its
-    # own from the end of path (t)'s examples, beside its last walkthrough
+    # path (t)'s longest walkthrough (heat1d_dg: ~1,300 linearizations traced
+    # on the host, one thread) starts here and runs beside paths (l)-(q), so
+    # that it ends with path (t)'s examples; (u7), host-bound and
+    # kernel-free, runs in a process of its own beside path (t)
+    walk_dir, early = tempfile.mkdtemp(prefix="chip_smoke_w_"), {}
     u7_dir, u7 = tempfile.mkdtemp(prefix="chip_smoke_u7_"), {}
     try:
+        early.update(start_walkthroughs(EARLY_WALKTHROUGHS, walk_dir))
+        # this slice's paths (l)-(p): time stepping and the differentiable
+        # solve; only (l) runs a kernel (K4, one launch per Chebyshev apply)
+        heat_launches = {}
+        u_cheb, applies_heat = counted(
+            "heat march cheb-pcg", ("chebyshev_apply",),
+            lambda: phase_heat_cheb(torch, nkt), into=heat_launches)
+        k4_heat = heat_launches["chebyshev_apply"]
+        log(f"[launches] heat march cheb-pcg: K4 {k4_heat} launches = "
+            f"{applies_heat} Chebyshev preconditioner applies")
+        if k4_heat != applies_heat:
+            raise AssertionError("K4 launches on the heat march are not one per "
+                                 "Chebyshev preconditioner apply")
+        launches["chebyshev_apply"] += k4_heat
+        heat_counts = counted("heat march dst integrate_scan", (),
+                              lambda: phase_heat_dst_scan(torch, nkt, u_cheb))
+        del u_cheb
+        counted("heat drivers and resume", (), lambda: phase_heat_drivers(torch, nkt))
+        counted("small problems, card against cpu", (),
+                lambda: phase_small_problems(torch, nkt))
+        counted("implicit grad", (), lambda: phase_implicit_grad(torch, nkt, bratu2d))
+
+        # this slice's path (q): the sharded solvers on a world-1 NCCL group;
+        # they run no hand-written kernel (the sharded Chebyshev exchanges
+        # ghosts between polynomial steps, which K4 cannot)
+        t0 = time.perf_counter()
+        counted("sharded solvers (nccl, world 1)", (), lambda: phase_sharded(
+            torch, nkt, bratu2d, smi, info_f, flagship.pop("u"),
+            info_c, heat_counts))
+        log(f"[summary] path (q): {time.perf_counter() - t0:.1f} s")
+
         # this slice's path (t): the example gallery and the walkthroughs on
         # the card; bratu_2d_cuda's refined CG lane launches K1 every matvec
         # and K2 every residual, and the kernels JSON counts them beside the
         # main path's
         t0 = time.perf_counter()
         t_launches = {}
+        u7["proc"] = start_run_configs(u7_dir)
         gallery = counted(
             "examples", ("stencil_jvp", "bratu_residual"),
-            lambda: phase_examples(torch, lambda: u7.update(
-                proc=start_run_configs(u7_dir))), into=t_launches)
+            lambda: phase_examples(torch, early), into=t_launches)
         lane = gallery["bratu_2d_cuda"]["refined_cg"]
         log(f"[launches] examples: K1 {t_launches['stencil_jvp']} launches "
             f"(bratu_2d_cuda's refined CG lane: {lane['outer']} / "
@@ -3383,9 +3772,14 @@ def main() -> int:
         counted("run_configs (u7)", (),
                 lambda: phase_run_configs(torch, u7["proc"]))
     finally:
-        if "proc" in u7 and u7["proc"][0].poll() is None:
-            u7["proc"][0].kill()
-            u7["proc"][0].wait()
+        procs = [proc for proc, _ in early.values()]
+        if "proc" in u7:
+            procs.append(u7["proc"][0])
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(walk_dir, ignore_errors=True)
         shutil.rmtree(u7_dir, ignore_errors=True)
     err = phase_k4_xl(torch, nkt, bratu2d)  # before the counts are zeroed
     summary["chebyshev_apply"] = (max(summary["chebyshev_apply"][0], err),
@@ -3406,7 +3800,7 @@ def main() -> int:
     launches["chebyshev_apply"] += u_launches["chebyshev_apply"]
     del large
     counted("floor probe (u5)", (), lambda: phase_floor(torch))
-    counted("solve profile (u6)", (), lambda: phase_solve_profile(torch))
+    profile = counted("solve profile (u6)", (), lambda: phase_solve_profile(torch))
     log(f"[summary] path (u): {time.perf_counter() - t0:.1f} s")
 
     # the multigrid and line-relaxation slice (PCR line solves on the card);
@@ -3445,13 +3839,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cheb(torch, nkt, bratu2d, N, "warm")
     phase_cheb(torch, nkt, bratu2d, 1024, "run")
-    _, warm_wall = phase_convdiff(torch, nkt, "warm")
-    phase_native_f64_flagship(torch, nkt, bratu2d)
+    native = phase_native_f64_flagship(torch, nkt, bratu2d)
     phase_aligned_small(torch, nkt, bratu2d)
     phase_convdiff_small(torch, nkt)
     phase_conv25_small(torch, nkt)
     log(f"[summary] warm repeats and 64² cross-checks: "
         f"{time.perf_counter() - t0:.1f} s")
+    # this slice's path (v): the design decisions measured on the card; it
+    # runs no hand-written kernel (the DST engines, df32 and the
+    # orthogonalizations are library and plain PyTorch work).  Its CGS2
+    # convection-diffusion solve is the warm repeat the breakdown reads
+    design = counted("design measurements (v)", (),
+                     lambda: phase_design(torch, nkt, bratu2d, native, profile))
+    warm_wall = design["v3"][0]["cgs2"][2]
     t0 = time.perf_counter()
     phase_breakdown(torch, nkt, bratu2d)
     phase_convdiff_breakdown(torch, nkt, warm_wall)

@@ -1,9 +1,9 @@
 """The large-side regime on one card: 8192² Bratu solves.
 
 Counterpart of ``benchmarks/xl8192.py``.  Past ``fftprec._MATMUL_MAX_N``
-(4096) there is no DST engine for the flagship, so the JAX package's
-decision guide sends larger sides on one device to the geometric V-cycle.
-This script runs the flagship configuration (f32 Krylov CG, the df32
+(4096) the flagship's DST takes the FFT engine, which the JAX package could
+not compile at 8192², so its decision guide sends larger sides on one
+device to the geometric V-cycle.  This script runs the flagship configuration (f32 Krylov CG, the df32
 acceptance residual, ``tol_rel=1e-8``, ``max_niter=20``) at 8192² — 67 M
 unknowns — through the chained-solve protocol of :mod:`.chain_solve`, in
 three lanes:
@@ -12,7 +12,11 @@ three lanes:
 * ``two-grid``: ``two_grid(8, precision="high")`` built once, the plain
   Chebyshev smoother (``engine="xla"``);
 * ``two-grid pallas``: the same with ``engine="pallas"``: K4 runs each
-  smoothing, two launches an apply.
+  smoothing, two launches an apply;
+
+and, for the DST engines' comparison, the flagship's own preconditioner
+(``"DST flagship"``, the engine ``fftprec`` picks by side; ``"DST fft"``,
+the FFT engine at any side).
 
 Each lane is gated: ``solved``, and the f64 true residual of the returned
 state at most the tolerance the driver accepted at (clamped to the df32
@@ -40,12 +44,15 @@ import torch
 from . import chain_solve as cs
 
 LANES = ("MG-PCG", "two-grid", "two-grid pallas")
+# the flagship's own preconditioner by its DST engine (fftprec.fft_poisson's
+# ``method``): "auto" takes the matrix products up to _MATMUL_MAX_N (4096)
+# and the FFTs above; "DST fft" forces the FFTs at any side
+DST_LANES = {"DST flagship": "auto", "DST fft": "fft"}
 
 
 def lane_factory(tag: str) -> tuple:
     """(preconditioner factory, refresh) of lane ``tag``: one of
-    :data:`LANES`, or ``"DST flagship"`` (the flagship's own, at sides up to
-    the DST matmul engine's 4096)."""
+    :data:`LANES` or of :data:`DST_LANES` (the flagship's own, by engine)."""
     from ..mg import multigrid2d
     from ..precond import two_grid
 
@@ -55,11 +62,11 @@ def lane_factory(tag: str) -> tuple:
         return two_grid(8, precision="high"), "once"
     if tag == "two-grid pallas":
         return two_grid(8, precision="high", engine="pallas"), "once"
-    if tag == "DST flagship":  # up to the matmul engine's side of 4096
+    if tag in DST_LANES:  # "auto": the matrix products up to 4096
         from ..fftprec import fft_poisson
 
-        return fft_poisson(precision="high"), "once"
-    raise ValueError(f"unknown lane {tag!r}; one of {LANES} or \"DST flagship\"")
+        return fft_poisson(precision="high", method=DST_LANES[tag]), "once"
+    raise ValueError(f"unknown lane {tag!r}; one of {LANES + tuple(DST_LANES)}")
 
 
 def counting(factory: Callable, counter: Dict[str, int]) -> Callable:
@@ -217,7 +224,7 @@ def run(sizes: Sequence[int] = (8192,), lanes: Sequence[str] = LANES,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[8192])
-    ap.add_argument("--lanes", nargs="+", choices=LANES + ("DST flagship",),
+    ap.add_argument("--lanes", nargs="+", choices=LANES + tuple(DST_LANES),
                     default=list(LANES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--k-hi", type=int, default=3)

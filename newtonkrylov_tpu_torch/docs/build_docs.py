@@ -8,7 +8,8 @@ machine, which has no ``markdown``, never runs it.
 
 * pages: the repository's README as the home page, the port's API map
   (``api.md``), decision guide (``preconditioners.md``), parity account
-  (``parity.md``) and walkthroughs, all beside this file;
+  (``parity.md``), design account (``design.md``) and walkthroughs, all
+  beside this file;
 * the API reference: the public names of every module of
   ``newtonkrylov_tpu_torch``, from their docstrings (imported live, so the
   page cannot drift from the code);
@@ -50,6 +51,7 @@ PAGES = [
     ("__autodoc__", "reference", "API reference"),
     (DOCS / "preconditioners.md", "preconditioners", "Choosing a preconditioner"),
     (DOCS / "parity.md", "parity", "Reference parity"),
+    (DOCS / "design.md", "design", "Design notes (on the H100)"),
     (DOCS / "walkthrough_heat2d.md", "walkthrough_heat2d", "Heat 2-D walkthrough"),
     (DOCS / "walkthrough_heat1d_dg.md", "walkthrough_heat1d_dg", "Heat 1-D DG walkthrough"),
     (DOCS / "walkthrough_sharded.md", "walkthrough_sharded", "Sharded-solve walkthrough"),

@@ -47,6 +47,10 @@ def test_site_builds_strict(tmp_path):
         assert f'id="{key}"' in refs, f"missing reference entry {key}"
     parity = (out / "parity.html").read_text()
     assert 'href="references.html#Kelley2022"' in parity
+    design = (out / "design.html").read_text()
+    for key in ("Dekker1971", "Hida2001", "EisenstatWalker1996"):
+        assert f'href="references.html#{key}"' in design
+    assert 'href="#the-dst-engines-and-the-4096-edge"' in design
     assert (out / "_figures").is_dir() and (out / "notebooks").is_dir()
 
 

@@ -92,6 +92,49 @@ def test_dst_poisson_solver_matches_jax(method):
     np.testing.assert_allclose(at(_t(r)).numpy(), ref, rtol=RTOL, atol=RTOL * np.abs(ref).max())
 
 
+def test_dst_engines_agree():
+    """The two engines of one solver at 64² in f64 (the CPU rehearsal of
+    ``chip_smoke.py``'s DST engine table, which holds them to 1e-4 in f32
+    on the card): the same inverse to 1e-12."""
+    n, o, dbar = 64, -1.0, -3.9
+    r = _t(_np(7, (n, n)))
+    out = {m: tf.dst_poisson_solver(torch.tensor(o, dtype=F64),
+                                    torch.tensor(dbar, dtype=F64), (n, n), F64,
+                                    method=m, precision="high")(r)
+           for m in ("matmul", "fft")}
+    ref = out["matmul"].numpy()
+    np.testing.assert_allclose(out["fft"].numpy(), ref, rtol=RTOL,
+                               atol=RTOL * np.abs(ref).max())
+
+
+def test_flagship_counts_equal_on_both_engines():
+    """The flagship configuration (CG, DST built once, ``tol_rel=1e-8``) at
+    64² in f64 with ``method="fft"`` takes the counts of ``"matmul"`` and of
+    the JAX package's FFT engine, and their state to 1e-12 (the CPU
+    rehearsal of the card's FFT-engine flagships, gated on the matrix
+    products' outer count)."""
+    n = 64
+    pj = jb.default_config(n, lam=5.0)
+    u0 = np.asarray(jb.initial_guess(n))
+    kw = dict(algo="cg", tol_rel=1e-8, max_niter=20, precond_refresh="once")
+    runs = {m: nkt.newton_krylov_jit(tb.residual_scaled, _t(u0), convert.params(pj),
+                                     M=tf.fft_poisson(precision="high", method=m),
+                                     **kw)
+            for m in ("matmul", "fft")}
+    uj, ij = nk.newton_krylov_jit(jb.residual_scaled, jnp.asarray(u0), pj,
+                                  M=jf.fft_poisson(precision="high", method="fft"),
+                                  **kw)
+    counts = {m: (info.stats.outer_iterations, info.stats.inner_iterations)
+              for m, (_, info) in runs.items()}
+    assert all(bool(info.solved) for _, info in runs.values()) and bool(ij.solved)
+    assert counts["fft"] == counts["matmul"] == (
+        int(ij.stats.outer_iterations), int(ij.stats.inner_iterations))
+    np.testing.assert_allclose(runs["fft"][0].numpy(), runs["matmul"][0].numpy(),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(runs["fft"][0].numpy(), np.asarray(uj),
+                               rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("shift", ["mean", "none"])
 def test_fft_poisson_factory_matches_jax(jacobians, shift):
     Jj, Jt = jacobians

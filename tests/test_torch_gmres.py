@@ -176,6 +176,35 @@ def test_ortho_block_matches_jax_and_unblocked(restart, block):
     np.testing.assert_allclose(rt.x.numpy(), x_true, atol=1e-7)
 
 
+@pytest.mark.parametrize("block", [7, 32])
+def test_ortho_block_convdiff_matches_unblocked(block):
+    """Blocked CGS2 on the convection–diffusion solve of ``chip_smoke.py``'s
+    orthogonalization table (c = 2, DST rebuilt every outer, full GMRES,
+    exact Newton) at 32² in f64: the unblocked CGS2's counts, and its state
+    to 1e-12.  At block 7 the projections run over several chunks; 32 is
+    the chunk the card's table measures (the JAX package's own recipe,
+    ``newtonkrylov_tpu/problems/convdiff2d.py:47``).  At larger sides the
+    two sum in another order and their counts part by rounding (ROADMAP
+    Queue 3 item 26)."""
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import convdiff2d as tc
+
+    n = 32
+    p = tc.default_config(n, c=2.0, dtype=F64, device="cpu")
+    u0 = tc.initial_guess(n, F64, "cpu")
+    runs = [nkt.newton_krylov_jit(
+        tc.residual_scaled, u0, p, M=fft_poisson(), algo="gmres", forcing=None,
+        tol_rel=1e-10, max_niter=25,
+        krylov_kwargs={"restart": None, "itmax": 150, "ortho_block": b})
+        for b in (None, block)]
+    (u, info), (ub, infob) = runs
+    assert bool(info.solved) and bool(infob.solved)
+    assert (infob.stats.outer_iterations, infob.stats.inner_iterations) == (
+        info.stats.outer_iterations, info.stats.inner_iterations)
+    np.testing.assert_allclose(ub.numpy(), u.numpy(), rtol=0,
+                               atol=1e-12 * float(u.abs().max()))
+
+
 @pytest.mark.parametrize("block", [None, 16])
 def test_masked_space_matches_jax(block):
     rng = np.random.default_rng(0)
