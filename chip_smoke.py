@@ -198,9 +198,24 @@ Phases (each raises on failure; the script exits non-zero after any):
     each under the lane's gate, the blocked CGS2 in the unblocked one's
     outer count and its inner count within 1%, and one orthogonalization of
     each against 101 and 301 active rows of the lane's basis (three
-    clocks).  Path (v) launches no hand-written kernel.
+    clocks).  Path (v) launches no hand-written kernel;
+22. path (w), after path (v): the single-pass DST mode
+    (``fft_poisson(precision="default")``: every product a bf16 tensor-core
+    product with f32 accumulation).  (w1) one f32 apply in each precision
+    at 512²–4096² by the three clocks, "high" equal to "highest" (the same
+    f32 products here), the single pass 1e-4 to 2e-2 (relative l2) from
+    them, and at 512² its four products each within 1e-5 of the f64
+    product of the same bf16 operands, the apply their chain; (w2) the DST
+    flagship lane of ``benchmarks/dst_precision_probe.py`` in "highest"
+    and "default" at 1024² and 2048², (w3) its two-grid lane in "high" and
+    "default" at 2048², each gated on ``solved`` and its f64 true residual
+    under the clamped tolerance, the counts beside the JAX probe's TPU
+    counts; (w4), inside path (q)'s group, the sharded global DST in the
+    single pass on a mesh made with ``make_mesh(..., devices=[0])``
+    against the unsharded solve at 1024²: equal counts, states within
+    1e-6.  Path (w) launches no hand-written kernel.
 
-Launch counts are zeroed just before each of phases 6–13 and 15–21 and read
+Launch counts are zeroed just before each of phases 6–13 and 15–22 and read
 just after; each kernel must have been launched on its path (the two-grid
 path's K4 count is logged on its own line; the JSON's K4 count is that of
 the two Cheb-PCG paths at 2048², the Ψtc path, the heat march and path
@@ -214,6 +229,7 @@ script fails and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -345,6 +361,25 @@ ORTHO_KS = (100, 300)
 ORTHO_BLOCK_INNER_RTOL = 0.01
 ORTHO_VARIANTS = (("cgs2", "cgs2", None), ("mgs", "mgs", None),
                   (f"cgs2 block {ORTHO_BLOCK}", "cgs2", ORTHO_BLOCK))
+
+# Path (w): the single-pass DST mode, fftprec's precision="default" (each
+# product a bf16 tensor-core product with f32 accumulation).  (w1) one f32
+# apply in each precision at SINGLE_PASS_SIDES; at the first side each of
+# its four products within SINGLE_PASS_PRODUCT_RTOL (relative l2) of the
+# f64 product of the same bf16 operands, and the apply that chain of
+# products; at every side the single pass apart from the full-f32 apply by
+# SINGLE_PASS_APART (relative l2: the bf16 rounding shows, ~0.1-1%).  (w2)
+# the DST flagship in "highest" and "default" at SINGLE_PASS_SOLVE_SIDES,
+# (w3) two_grid(8) in "high" and "default" at N, (w4) the sharded global DST
+# in "default" at SINGLE_PASS_SHARDED_N on a mesh made with devices=,
+# against the unsharded solve: equal counts, states within
+# SINGLE_PASS_SHARDED_ATOL (max abs; bit for bit is expected at world 1)
+SINGLE_PASS_SIDES = (512, 1024, 2048, 4096)
+SINGLE_PASS_PRODUCT_RTOL = 1e-5
+SINGLE_PASS_APART = (1e-4, 2e-2)
+SINGLE_PASS_SOLVE_SIDES = (1024, 2048)
+SINGLE_PASS_SHARDED_N = 1024
+SINGLE_PASS_SHARDED_ATOL = 1e-6
 
 # For the least time the card could take for a kernel's work (bytes over
 # the memory rate, operations over the float32 rate): NVIDIA's H100 SXM data
@@ -2447,6 +2482,9 @@ def phase_sharded(torch, nkt, bratu2d, smi, info_f, u_f, info_c, heat_counts):
         _gate_decay(torch, "sharded heat scan", r.u, hu0, g, steps)
         phase_transpose(torch, bratu2d, mesh, u_f)  # (q5)
         phase_scaling(torch)  # (r4)
+        t0 = time.perf_counter()
+        phase_sharded_single_pass(torch, bratu2d)  # (w4)
+        log(f"[summary] (w4) single-pass sharded: {time.perf_counter() - t0:.1f} s")
         return info, info2, info3
     finally:
         D.shutdown()
@@ -3516,6 +3554,230 @@ def _ortho_steps(torch):
     return steps
 
 
+def _rel_l2(torch, a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def _single_pass_products(torch, fftprec, o, dbar, n, r, got):
+    """(w1) the single-pass apply ``got`` of ``r`` at n², product by
+    product: the operands rounded by ``fftprec._products`` (bf16 tensors on
+    the card), each product (an f32 tensor) against the f64 product of the
+    same operands, the chain of the four against the apply, and the apply
+    against the plain rounding reference (operands rounded to bf16, every
+    product summed in f64).  Returns the relative l2 differences."""
+    f32, f64 = torch.float32, torch.float64
+    dev = r.device
+    rnd, mm = fftprec._products("default", f32, dev)
+    S = rnd(fftprec.sine_basis(n, f32, dev))
+    # the eigenvalue table, formed as dst_poisson_solver forms it
+    ci = 2.0 * torch.cos(math.pi * torch.arange(1, n + 1, dtype=f64, device=dev)
+                         / (n + 1))
+    lam = o * (ci[:, None] + ci[None, :] - 4.0) + (dbar + 4.0 * o)
+    lam = torch.where(lam.abs() > 1e-30, lam, torch.ones_like(lam)).to(f32)
+    norm = torch.tensor((2.0 / (n + 1)) ** 2, dtype=f32, device=dev)
+    x, products = r, []
+    for k in range(4):
+        if k == 2:
+            x = x / lam
+        xr = rnd(x)
+        if xr.dtype != torch.bfloat16:
+            raise AssertionError(f"single pass: operand of dtype {xr.dtype}")
+        lhs, rhs = (S, xr) if k % 2 == 0 else (xr, S)
+        x = mm(lhs, rhs)
+        if x.dtype != f32:
+            raise AssertionError(f"single pass: product of dtype {x.dtype}")
+        products.append(_rel_l2(torch, x, lhs.double() @ rhs.double()))
+    chain = _rel_l2(torch, got, x * norm)
+
+    def bf(t):
+        return t.to(torch.bfloat16).double()
+
+    Sd = S.double()
+    y = bf(Sd @ bf(r)) @ Sd / lam.double()
+    y = bf(Sd @ bf(y)) @ Sd * norm.double()
+    return {"products": products, "chain": chain, "whole": _rel_l2(torch, got, y)}
+
+
+def phase_single_pass_applies(torch, nkt, bratu2d):
+    """(w1) one f32 apply of ``fftprec.dst_poisson_solver``'s matrix
+    products in each precision on a seeded right-hand side, with the
+    flagship's o and mean diagonal at u₀, at SINGLE_PASS_SIDES by
+    ``_clocks`` (device ms by the graph replay, host µs to issue); gated:
+    "high" the same products as "highest" (equal outputs), the single pass
+    SINGLE_PASS_APART from "highest", and at the first side its products
+    against the f64 products of the same bf16 operands and the apply
+    against their chain.  Returns the rows."""
+    from newtonkrylov_tpu_torch import fftprec
+    from newtonkrylov_tpu_torch.mg import probe_5point
+
+    rows = []
+    for n in SINGLE_PASS_SIDES:
+        J = nkt.JacobianOperator(bratu2d.residual_scaled,
+                                 bratu2d.initial_guess(n, torch.float32, "cuda"),
+                                 bratu2d.default_config(n, LAM))
+        o, d = probe_5point(J)
+        dbar = d.mean()
+        del J, d
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        r = torch.randn((n, n), generator=gen, device="cuda", dtype=torch.float32)
+        row, out = {"n": n}, {}
+        for prec in ("highest", "high", "default"):
+            apply = fftprec.dst_poisson_solver(o, dbar, (n, n), torch.float32,
+                                               "matmul", prec)
+            out[prec] = apply(r)
+            if not bool(torch.isfinite(out[prec]).all()):
+                raise AssertionError(f"single pass: {prec} apply at {n}²: "
+                                     "non-finite")
+            row[prec] = c = _clocks(lambda apply=apply: apply(r),
+                                    max(3, min(20, 20480 // n)))
+            log(f"[single pass] {n}² {prec}: {_fmt_clocks(c)}")
+            del apply
+        if not torch.equal(out["high"], out["highest"]):
+            raise AssertionError(f"single pass: 'high' and 'highest' differ at "
+                                 f"{n}² (they are the same f32 products here)")
+        row["rel_l2"] = _rel_l2(torch, out["default"], out["highest"])
+        lo, hi = SINGLE_PASS_APART
+        if not lo <= row["rel_l2"] <= hi:
+            raise AssertionError(
+                f"single pass at {n}²: relative l2 {row['rel_l2']:.3e} from the "
+                f"f32 products, outside [{lo:g}, {hi:g}]")
+        if n == SINGLE_PASS_SIDES[0]:
+            row["check"] = chk = _single_pass_products(
+                torch, fftprec, o, dbar, n, r, out["default"])
+            log(f"[single pass] {n}²: the four products against the f64 "
+                f"products of the same bf16 operands "
+                + ", ".join(f"{e:.3e}" for e in chk["products"])
+                + f" (limit {SINGLE_PASS_PRODUCT_RTOL:g}); the apply against "
+                f"their chain {chk['chain']:.3e}; the apply against the plain "
+                f"rounding reference (f64 sums) {chk['whole']:.3e} (not gated: "
+                "an f32 sum can round the next bf16 operand the other way)")
+            if not (max(chk["products"]) <= SINGLE_PASS_PRODUCT_RTOL
+                    and chk["chain"] <= SINGLE_PASS_PRODUCT_RTOL):
+                raise AssertionError(f"single pass at {n}²: the products are "
+                                     "not bf16 products of the rounded operands")
+        rows.append(row)
+        del out, r
+    log("[single pass] side | highest device ms | default device ms | highest "
+        "/ default | host us to issue, highest / default | relative l2 default "
+        "- highest")
+    for row in rows:
+        hh, dd = row["highest"], row["default"]
+        log(f"[single pass] {row['n']}² | {hh['graph']:.4f} | {dd['graph']:.4f}"
+            f" | {hh['graph'] / dd['graph']:.2f}x | {hh['host_us']:.1f} / "
+            f"{dd['host_us']:.1f} | {row['rel_l2']:.3e}")
+    return rows
+
+
+def _gate_single_pass_lane(tag, rec):
+    if not (rec["solved"] and rec["finite"]):
+        raise AssertionError(f"single pass {tag}: the solve did not converge")
+    if not rec["true_res"] <= rec["tol"]:
+        raise AssertionError(f"single pass {tag}: f64 true residual "
+                             f"{rec['true_res']:.4e} above the accepted "
+                             f"tolerance {rec['tol']:.4e}")
+
+
+def phase_single_pass_solves(torch):
+    """(w2) the DST flagship lane of ``benchmarks/dst_precision_probe.py``
+    (the JAX probe's: the DST rebuilt every outer) in "highest" and
+    "default" at SINGLE_PASS_SOLVE_SIDES, beside the JAX probe's TPU
+    counts; (w3) its two-grid lane (``two_grid(8)`` built once) in "high"
+    and "default" at N.  Each gated: solved, the f64 true residual at most
+    the accepted tolerance; the counts are the finding.  Returns the
+    records."""
+    from newtonkrylov_tpu_torch.benchmarks import dst_precision_probe as dpp
+
+    recs = []
+    for n in SINGLE_PASS_SOLVE_SIDES:
+        for prec in ("highest", "default"):
+            recs.append(dpp.lane(n, prec, "cuda", timed=False, log=log))
+    for prec in ("high", "default"):
+        recs.append(dpp.lane(N, prec, "cuda", "two-grid", timed=False, log=log))
+    log("[single pass] lane | side | precision | outer / inner (TPU inners) | "
+        "floor_limited | wall of the first solve | f64 true |F| / accepted")
+    for rec in recs:
+        tag = f"{rec['precond']} {rec['n']}² {rec['precision']}"
+        _gate_single_pass_lane(tag, rec)
+        tpu = (dpp.TPU_INNERS.get((rec["n"], rec["precision"]))
+               if rec["precond"] == "DST" else None)
+        log(f"[single pass] {rec['precond']} | {rec['n']}² | {rec['precision']} | "
+            f"{rec['outer']} / {rec['inner']}"
+            + ("" if tpu is None else f" ({tpu} (TPU))")
+            + f" | {rec['floor_limited']} | {rec['first_s']:.3f} s | "
+            f"{rec['true_res']:.4e} / {rec['tol']:.4e}")
+    return recs
+
+
+def phase_sharded_single_pass(torch, bratu2d):
+    """(w4) in path (q)'s world-1 NCCL group: a mesh made with
+    ``make_mesh((1, 1), ("i", "j"), devices=[0])`` and the flagship
+    configuration at SINGLE_PASS_SHARDED_N² with the sharded global DST in
+    the single pass (four local bf16 products and four reduce-scatters of
+    their f32 partials an apply), against the unsharded solve with
+    ``fft_poisson(precision="default")``: both solved, equal counts, the
+    states within SINGLE_PASS_SHARDED_ATOL.  At world 1 this mesh spans the
+    group, so it reduces over the default group; a mesh over part of an
+    NCCL group is ``tests/test_torch_halo.py``'s four-card case."""
+    from newtonkrylov_tpu_torch import halo, newton_krylov_jit
+    from newtonkrylov_tpu_torch.benchmarks import chain_solve
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.utils import distributed as D
+    from newtonkrylov_tpu_torch.utils.dryrun import bratu_padded
+
+    n, axes = SINGLE_PASS_SHARDED_N, ("i", "j")
+    mesh = halo.make_mesh((1, 1), axes, devices=[0], device_type="cuda")
+    p = bratu2d.default_config(n, lam=LAM)
+    u0 = bratu2d.initial_guess(n, dtype=torch.float32, device="cuda").to(
+        torch.float64)
+    kw = chain_solve.flagship_kwargs(
+        fft_poisson(axis_names=axes, scope="global", precision="default"), "once")
+    kw["residual_df"] = halo.sharded_residual_df_2d(
+        bratu2d.residual_scaled_df_padded, axes, "dirichlet")
+    D.reset_collective_counts()
+    t0 = time.perf_counter()
+    u_s, info_s = halo.newton_krylov_sharded(
+        halo.sharded_residual_2d(bratu_padded, axes, "dirichlet"), u0, p, mesh,
+        halo.P(*axes), newton_kwargs=kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    coll = dict(D.COLLECTIVES)
+    t0 = time.perf_counter()
+    u_1, info_1 = newton_krylov_jit(
+        bratu2d.residual_scaled, u0, p,
+        **chain_solve.flagship_kwargs(fft_poisson(precision="default"), "once"))
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    diff = float((u_s - u_1).abs().max())
+    counts = [(i.stats.outer_iterations, i.stats.inner_iterations)
+              for i in (info_s, info_1)]
+    log(f"[single pass sharded] {n}² mesh {mesh.mesh.tolist()} (devices=[0]): "
+        f"sharded global DST 'default' {counts[0][0]} / {counts[0][1]} in "
+        f"{wall_s:.3f} s ({coll['reduce_scatter']} reduce-scatters, "
+        f"{coll['all_reduce']} all-reduces), unsharded 'default' {counts[1][0]} "
+        f"/ {counts[1][1]} in {wall_1:.3f} s; max|u_sharded - u| {diff:.3e}, "
+        f"bit for bit: {_bitwise_equal(torch, u_s, u_1)}")
+    if not (bool(info_s.solved) and bool(info_1.solved)):
+        raise AssertionError("single pass sharded: a solve did not converge")
+    if counts[0] != counts[1] or not diff <= SINGLE_PASS_SHARDED_ATOL:
+        raise AssertionError(f"single pass sharded: {counts[0]} against "
+                             f"{counts[1]}, states apart by {diff:.3e}")
+    return {"counts": counts, "diff": diff, "walls": (wall_s, wall_1)}
+
+
+def phase_single_pass(torch, nkt, bratu2d):
+    """Path (w): (w1)-(w3), each gated ((w4) runs in path (q)); returns
+    their results."""
+    t0 = time.perf_counter()
+    out = {"w1": phase_single_pass_applies(torch, nkt, bratu2d)}
+    log(f"[summary] (w1) single-pass applies: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["w2_w3"] = phase_single_pass_solves(torch)
+    log(f"[summary] (w2)-(w3) single-pass solves: {time.perf_counter() - t1:.1f} s")
+    log(f"[summary] path (w): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_design(torch, nkt, bratu2d, native, profile):
     """Path (v): (v1)-(v3), each gated; returns their results."""
     t0 = time.perf_counter()
@@ -3852,6 +4114,10 @@ def main() -> int:
     design = counted("design measurements (v)", (),
                      lambda: phase_design(torch, nkt, bratu2d, native, profile))
     warm_wall = design["v3"][0]["cgs2"][2]
+    # this slice's path (w): the single-pass DST mode; it runs no
+    # hand-written kernel (the products are cuBLAS's bf16 tensor-core
+    # products)
+    counted("single-pass DST (w)", (), lambda: phase_single_pass(torch, nkt, bratu2d))
     t0 = time.perf_counter()
     phase_breakdown(torch, nkt, bratu2d)
     phase_convdiff_breakdown(torch, nkt, warm_wall)

@@ -12,6 +12,9 @@ Each runs on the card unless given ``--device cpu``:
   df32 floor, the per-phase cost of a flagship outer, the df32 path's cost
   and the preconditioner lanes, counterparts of the JAX scripts of the same
   names;
+* :mod:`.dst_precision_probe` — the DST products' precision (the full-f32
+  products and the single bf16 pass) against the flagship's counts and
+  wall, counterpart of the JAX script of the same name;
 * :mod:`.run_configs`, :mod:`.bvp_adjudicate` — the BASELINE configurations
   and the BVP recipe's adjudication, whose CPU f64 records
   (``baseline_configs.json``, ``bvp_adjudication.json``) live beside them.

@@ -13,11 +13,11 @@ or ``utils.distributed.run_processes(rank_main, W, device=...)``
 Alone, ``main`` runs a group of one process on a file store: NCCL on the
 card, gloo on the CPU.
 
-The meshes follow the world (:func:`meshes`): at W = 4 the JAX example's
-(2, 2) and (4,) meshes for plain CG and (2, 2) for the global DST; at
-W = 8 (2, 4), (8,) and (2, 4) — a port mesh spans the whole group
-(``halo.make_mesh``), so the JAX example's (2, 2) mesh over four of its
-eight devices has no counterpart there; at W = 1 a 1×1 mesh, whose
+The meshes follow the world (:func:`meshes`): at W = 8 the JAX example's
+own — (2, 2) over ranks 0–3 and (8,) for plain CG, (2, 4) for the global
+DST (``halo.make_mesh(..., devices=)`` takes the first ranks, and ranks
+4–7 sit the (2, 2) solve out); at W = 4 its (2, 2) and (4,) meshes for
+plain CG and (2, 2) for the global DST; at W = 1 a 1×1 mesh, whose
 exchange sends no message and whose reductions are real collectives.
 """
 
@@ -47,7 +47,11 @@ def padded_residual(up, p):
 
 def meshes(world: int):
     """``(cg_meshes, dst_mesh)`` for a group of ``world`` ranks: each CG mesh
-    a ``(shape, axes, spec)``, the global-DST mesh a 2-D shape."""
+    a ``(shape, axes, spec)`` over the first ranks, the global-DST mesh a
+    2-D shape."""
+    if world == 8:  # the JAX example's, on its 8 devices
+        return ([((2, 2), ("i", "j"), P("i", "j")),
+                 ((8,), ("i",), P("i", None))], (2, 4))
     rows, cols = mesh_shape(world)  # rows ≥ cols
     grid = (cols, rows)
     cg = [(grid, ("i", "j"), P("i", "j"))]
@@ -60,7 +64,9 @@ def rank_main() -> dict:
     """The per-rank code, in an initialized process group: the
     single-device solves on this rank's device, then the sharded solves on
     every mesh of :func:`meshes`.  Rank 0 prints; every rank returns the
-    same summary (states gathered)."""
+    summary of the meshes it belongs to (states gathered).  Every rank
+    makes every mesh (``make_mesh`` is collective over the group); a rank
+    outside one sits its solve out."""
     world, rank = dist.get_world_size(), dist.get_rank()
     cuda = dist.get_backend() == "nccl"
     device_type = "cuda" if cuda else "cpu"
@@ -82,6 +88,8 @@ def rank_main() -> dict:
     cg_meshes, dst_shape = meshes(world)
     for shape, axes, spec in cg_meshes:
         mesh = make_mesh(shape, axes, device_type=device_type)
+        if mesh.get_coordinate() is None:
+            continue
         F_local = sharded_residual_2d(
             padded_residual, (axes[0], axes[1] if len(axes) > 1 else None),
             "dirichlet")

@@ -12,13 +12,24 @@ with ``d̄`` the mean diagonal.  Up to ``_MATMUL_MAX_N`` one apply is four
 sine-basis matrix products (``torch.matmul``) and an eigenvalue scale; above
 it, odd-extension FFTs.
 
-Precision: the JAX package's ``"high"`` is the TPU's three-pass bf16 mode
-(~21 bits) and ``"highest"`` its six-pass f32 mode.  Here both are a full
-float32 product.  A TF32 product keeps ~10 bits, and the JAX package
-measured a preconditioner of that accuracy going from 9 to 49 inner
-iterations at 1024², so the matrix-product engine refuses to build while
-``torch.backends.cuda.matmul.allow_tf32`` is set.  The single-pass
-``"default"`` mode is not ported.
+Precision, as the JAX package names it:
+
+* ``"high"`` (the TPU's three-pass bf16 mode, ~21 bits) and ``"highest"``
+  (its six-pass f32 mode) are both a full float32 product here.  A TF32
+  product keeps ~10 bits, so these modes refuse to build while
+  ``torch.backends.cuda.matmul.allow_tf32`` is set.
+* ``"default"`` is the single-pass mode: each of the four products rounds
+  both operands (the basis, once at build, and the intermediate, every
+  product) to bfloat16 and accumulates in float32.  On a CUDA float32
+  state that is the bf16 tensor-core product with an f32 result
+  (``torch.mm(..., out_dtype=torch.float32)``); on the CPU the rounded
+  operands are multiplied in float32 (a product of two bf16 numbers is
+  exact in f32, so only the summation order differs from the card; the
+  JAX package's CPU ignores the precision, ROADMAP.md Queue 3 item 27); a
+  float64 state rounds its operands to bf16 and accumulates in float64.
+  The eigenvalue scale and the normalization stay in the state's dtype.
+
+The FFT engine ignores the precision.
 
 Sharded (``axis_names=``, inside a solve of :mod:`~newtonkrylov_tpu_torch.halo`):
 ``scope="local"`` solves each rank's block alone (block Jacobi, no
@@ -47,6 +58,7 @@ __all__ = ["dst1", "idst1", "fft_poisson", "dst_poisson_solver", "sine_basis"]
 # Engine crossover kept at the JAX package's value for parity; it was set on
 # a TPU and is to be re-measured on the GPU (ROADMAP.md).
 _MATMUL_MAX_N = 4096
+_PRECISIONS = ("default", "high", "highest")
 
 
 def _check_matmul_precision():
@@ -57,18 +69,32 @@ def _check_matmul_precision():
             "~10 mantissa bits, which degrades the preconditioner)")
 
 
+def _products(precision: str, dtype, device):
+    """``(rnd, mm)`` for the sine-basis products of one apply: ``rnd``
+    rounds an operand as ``precision`` asks (the identity for the full
+    f32 modes, bf16 for ``"default"``) and ``mm(a, b)`` multiplies two
+    rounded operands into ``dtype``."""
+    if precision != "default":
+        return (lambda x: x), torch.matmul
+    bf16 = torch.bfloat16
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        # cuBLAS's bf16 tensor-core product, accumulated and returned in f32
+        return ((lambda x: x.to(bf16)),
+                (lambda a, b: torch.mm(a, b, out_dtype=torch.float32)))
+    return (lambda x: x.to(bf16).to(dtype)), torch.mm
+
+
 def dst_poisson_solver(o, dbar, shape, dtype, method: str = "auto",
                        precision: str = "highest"):
     """Exact solver for (o·S + d̄·I) x = r on an (n, m) zero-Dirichlet grid.
 
     ``o`` and ``dbar`` are 0-d tensors; the eigenvalues are formed in f64
-    and the transforms run in ``dtype`` on ``o``'s device.  Returns
+    and the transforms run in ``dtype`` on ``o``'s device.  ``precision``
+    is that of the matrix-product engine (the module's notes).  Returns
     ``apply(r)``.
     """
-    if precision not in ("high", "highest"):
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported (only full-f32 'high'/"
-            "'highest'; ROADMAP.md Queue 3 hazard (a))")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
     n, m = shape
     device = o.device
     f64 = dict(dtype=torch.float64, device=device)
@@ -80,14 +106,16 @@ def dst_poisson_solver(o, dbar, shape, dtype, method: str = "auto",
     use_matmul = method == "matmul" or (
         method == "auto" and max(n, m) <= _MATMUL_MAX_N)
     if use_matmul:
-        _check_matmul_precision()
+        if precision != "default":  # the single pass is bf16, not TF32
+            _check_matmul_precision()
         norm = (2.0 / (n + 1)) * (2.0 / (m + 1))
         Sr0 = sine_basis(n, dtype, device)
         Sc0 = sine_basis(m, dtype, device)
-        consts = {}  # per operand dtype: (Sr, Sc, 1/λ-table, norm)
+        consts = {}  # per operand dtype: (rnd, mm, Sr, Sc, 1/λ-table, norm)
 
         def constants(dt):
-            return (Sr0.to(dt), Sc0.to(dt), safe.to(dt),
+            rnd, mm = _products(precision, dt, device)
+            return (rnd, mm, rnd(Sr0.to(dt)), rnd(Sc0.to(dt)), safe.to(dt),
                     torch.tensor(norm, dtype=dt, device=device))
 
         # made here for the solver's dtype: an exported solve applies the
@@ -101,10 +129,10 @@ def dst_poisson_solver(o, dbar, shape, dtype, method: str = "auto",
                 c = constants(r.dtype)
                 if not exporting():  # a traced constant stays out
                     consts[r.dtype] = c
-            Sr, Sc, lam_r, norm_r = c
-            rh = torch.matmul(torch.matmul(Sr, r), Sc)
+            rnd, mm, Sr, Sc, lam_r, norm_r = c
+            rh = mm(rnd(mm(Sr, rnd(r))), Sc)
             rh = rh / lam_r
-            out = torch.matmul(torch.matmul(Sr, rh), Sc)
+            out = mm(rnd(mm(Sr, rnd(rh))), Sc)
             return out * norm_r
 
     else:
@@ -167,25 +195,25 @@ def sine_basis(n: int, dtype=torch.float32, device=None):
                         device=device or default_device())
 
 
-def _dist_dst_axis0(r, S_cols, ax):
+def _dist_dst_axis0(r, S_cols, ax, mm=torch.matmul):
     """DST-I along global axis 0 of a block-sharded array (local block
-    ``r``): the product of the basis' column block owned by this rank
-    (``S_cols``, (n, nl)) with the local rows, then a ``reduce_scatter``
-    over mesh axis ``ax`` that hands each rank its own row block of the
-    sum.  ``ax`` None (the axis unsharded): the plain local product with
-    the whole basis."""
-    partial = torch.matmul(S_cols, r)  # (n, ml)
+    ``r``): the product ``mm`` of the basis' column block owned by this
+    rank (``S_cols``, (n, nl)) with the local rows, then a
+    ``reduce_scatter`` over mesh axis ``ax`` that hands each rank its own
+    row block of the sum.  ``ax`` None (the axis unsharded): the plain
+    local product with the whole basis."""
+    partial = mm(S_cols, r)  # (n, ml)
     if ax is None:
         return partial
     return _dist.reduce_scatter(partial, ax)
 
 
-def _dist_dst_axis1(r, S_rows, ax):
+def _dist_dst_axis1(r, S_rows, ax, mm=torch.matmul):
     """DST-I along global axis 1; mirror of :func:`_dist_dst_axis0` with the
     row block ``S_rows`` ((ml, m)).  The scatter runs on the transposed
     partial product (contiguous, dim 0), and the block comes back
     contiguous, so the next product sees the unsharded layout."""
-    partial = torch.matmul(r, S_rows)  # (nl, m)
+    partial = mm(r, S_rows)  # (nl, m)
     if ax is None:
         return partial
     return _dist.reduce_scatter(partial.t().contiguous(), ax).t().contiguous()
@@ -194,13 +222,9 @@ def _dist_dst_axis1(r, S_rows, ax):
 def _global_dst_solver(o, d, offsets, axis_names, shift, precision):
     """The global (o·S + d̄·I)⁻¹ in a sharded solve: the arithmetic of
     :func:`dst_poisson_solver`'s matrix-product engine, with each of its
-    four products distributed (a local product and one reduce-scatter; no
-    all-gather).  d̄ is the global mean diagonal (one all-reduce).
-    ``offsets`` is the block's global origin."""
-    if precision not in ("high", "highest"):
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported (only full-f32 'high'/"
-            "'highest'; ROADMAP.md Queue 3 hazard (a))")
+    four products distributed (a local product in ``precision`` and one
+    reduce-scatter of its partials; no all-gather).  d̄ is the global mean
+    diagonal (one all-reduce).  ``offsets`` is the block's global origin."""
     ax0, ax1 = axis_names
     nl, ml = d.shape
     roff, coff = offsets
@@ -212,7 +236,8 @@ def _global_dst_solver(o, d, offsets, axis_names, shift, precision):
             f"{_MATMUL_MAX_N} (= _MATMUL_MAX_N): the distributed sine-basis "
             "matmul engine is not valid at this size; use scope='local' or a "
             "Chebyshev/two-grid preconditioner")
-    _check_matmul_precision()
+    if precision != "default":
+        _check_matmul_precision()
     names = tuple(a for a in axis_names if a is not None)
     device = o.device
     if shift == "mean":
@@ -228,21 +253,25 @@ def _global_dst_solver(o, d, offsets, axis_names, shift, precision):
     norm = (2.0 / (n + 1)) * (2.0 / (m + 1))
     Sr0 = sine_basis(n, d.dtype, device)
     Sc0 = Sr0 if m == n else sine_basis(m, d.dtype, device)
-    consts = {}  # per operand dtype: the owned basis blocks, 1/λ table, norm
+    consts = {}  # per operand dtype: the products, the owned basis blocks,
+    # the 1/λ table and the norm
 
     def apply(r):
         c = consts.get(r.dtype)
         if c is None:
-            Sr, Sc = Sr0.to(r.dtype), Sc0.to(r.dtype)
+            rnd, mm = _products(precision, r.dtype, device)
+            Sr, Sc = rnd(Sr0.to(r.dtype)), rnd(Sc0.to(r.dtype))
             c = consts[r.dtype] = (
-                Sr[:, roff:roff + nl].contiguous(),
+                rnd, mm, Sr[:, roff:roff + nl].contiguous(),
                 Sc[coff:coff + ml, :].contiguous(),
                 safe.to(r.dtype), torch.tensor(norm, dtype=r.dtype, device=device))
-        S_cols, S_rows, lam_r, norm_r = c
-        rh = _dist_dst_axis1(_dist_dst_axis0(r, S_cols, ax0), S_rows, ax1)
-        rh = rh / lam_r
-        out = _dist_dst_axis1(_dist_dst_axis0(rh, S_cols, ax0), S_rows, ax1)
-        return out * norm_r
+        rnd, mm, S_cols, S_rows, lam_r, norm_r = c
+
+        def transform(x):
+            return _dist_dst_axis1(rnd(_dist_dst_axis0(rnd(x), S_cols, ax0, mm)),
+                                   S_rows, ax1, mm)
+
+        return transform(transform(r) / lam_r) * norm_r
 
     return apply
 
@@ -255,6 +284,9 @@ def fft_poisson(shift: str = "mean", method: str = "auto",
     ``shift``: ``"mean"`` (default) absorbs the mean diagonal d̄ into the
     eigenvalues, ``"none"`` inverts the pure Laplacian part.  ``method``:
     ``"matmul"``, ``"fft"`` or ``"auto"`` (matmul up to ``_MATMUL_MAX_N``).
+    ``precision``: ``"highest"`` (default) or ``"high"``, a full float32
+    product, or ``"default"``, the single-pass bf16 product with float32
+    accumulation (the module's notes).
 
     Sharded use: ``axis_names=(ax0, ax1)`` (a mesh axis or None per array
     dimension) with ``scope`` ``"local"`` (the default: each rank inverts
@@ -271,7 +303,7 @@ def fft_poisson(shift: str = "mean", method: str = "auto",
     """
     if method not in ("auto", "matmul", "fft"):
         raise ValueError(f"unknown method {method!r}")
-    if precision not in ("default", "high", "highest"):
+    if precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     if scope not in ("local", "global"):
         raise ValueError(f"unknown scope {scope!r}")

@@ -95,11 +95,22 @@ def mesh_shape(n_devices: int) -> Tuple[int, int]:
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("i", "j"),
+              devices: Optional[Sequence[int]] = None,
               device_type: Optional[str] = None):
-    """A ``DeviceMesh`` of the whole process group (row-major ranks) with
-    named axes, made current.  ``device_type`` defaults to the card
-    (``"cuda"``); pass ``"cpu"`` for a gloo group."""
-    from torch.distributed.device_mesh import init_device_mesh
+    """A ``DeviceMesh`` over the first prod(shape) of ``devices`` (global
+    ranks, one process a device; by default every rank of the group),
+    row-major, with named axes, made current — ``jax.make_mesh``'s
+    counterpart.  ``device_type`` defaults to the card (``"cuda"``); pass
+    ``"cpu"`` for a gloo group.
+
+    Every rank of the group calls it, in the same order: making process
+    groups is collective over the whole group.  On a rank outside the mesh
+    ``mesh.get_coordinate()`` is None, and the sharded entry points
+    (:func:`shard_array`, :func:`gather_array`,
+    :func:`newton_krylov_sharded`, :func:`integrate_scan_sharded`) raise
+    there; the mesh's reductions and gathers run over its own groups, so
+    the ranks outside take no part in them."""
+    from torch.distributed.device_mesh import DeviceMesh
 
     from .utils import default_device
 
@@ -107,15 +118,31 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("i", "j"),
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "utils.distributed.initialize first")
-    need, have = math.prod(shape), dist.get_world_size()
-    if need != have:
-        raise ValueError(f"mesh {shape} needs {need} processes, the group "
-                         f"has {have}")
+    world = dist.get_world_size()
+    devices = (list(range(world)) if devices is None
+               else [int(r) for r in devices])
+    need = math.prod(shape)
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices for mesh {shape}, have "
+                         f"{len(devices)}")
+    ranks = devices[:need]
+    if len(set(ranks)) < need or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"mesh {shape}: the devices {ranks} are not "
+                         f"distinct ranks of the group of {world}")
     device_type = device_type or default_device().type
-    mesh = init_device_mesh(device_type, shape,
-                            mesh_dim_names=tuple(axis_names))
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=tuple(axis_names))
+    D.init_axis_groups(mesh)
     D.register_mesh(mesh)
     return mesh
+
+
+def _member(mesh, what: str) -> None:
+    """Raise unless this rank is a device of ``mesh``."""
+    if mesh.get_coordinate() is None:
+        raise ValueError(
+            f"{what}: rank {dist.get_rank()} is outside the mesh "
+            f"{mesh.mesh.tolist()}; only its ranks take part in its solves")
 
 
 def _spec(spec, ndim: int):
@@ -145,6 +172,7 @@ def _block(x, mesh, spec):
 def shard_array(x, mesh, spec) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``spec``, as a
     contiguous copy on the mesh's device."""
+    _member(mesh, "shard_array")
     x = torch.as_tensor(x)
     return _block(x, mesh, spec).to(D.mesh_device(mesh)).clone(
         memory_format=torch.contiguous_format)
@@ -152,29 +180,30 @@ def shard_array(x, mesh, spec) -> torch.Tensor:
 
 def gather_array(x_local: torch.Tensor, mesh, spec) -> torch.Tensor:
     """The global tensor from every rank's block under ``spec`` (one
-    all-gather over the whole group), on every rank."""
-    world = dist.get_world_size()
-    x_local = x_local.contiguous()
-    parts = [torch.empty_like(x_local) for _ in range(world)]
-    D.COLLECTIVES["all_gather"] += 1
-    dist.all_gather(parts, x_local)
-    spec = _spec(spec, x_local.dim())
+    all-gather over the mesh's ranks), on every rank of the mesh."""
+    _member(mesh, "gather_array")
     names = tuple(mesh.mesh_dim_names)
+    group = D.axis_group(names, mesh)
+    members = (list(range(dist.get_world_size())) if group is None
+               else dist.get_process_group_ranks(group))
+    x_local = x_local.contiguous()
+    parts = [torch.empty_like(x_local) for _ in members]
+    D.COLLECTIVES["all_gather"] += 1
+    dist.all_gather(parts, x_local, group=group)
+    spec = _spec(spec, x_local.dim())
     shape = list(x_local.shape)
     for d, ax in enumerate(spec):
         if ax is not None:
             shape[d] *= int(mesh.size(names.index(ax)))
     out = x_local.new_empty(shape)
-    ranks = mesh.mesh.reshape(-1).tolist()
-    coords = [tuple(int(c) for c in torch.nonzero(mesh.mesh == r)[0])
-              for r in ranks]
-    for r, coord in zip(ranks, coords):
+    for r, part in zip(members, parts):
+        coord = tuple(int(c) for c in torch.nonzero(mesh.mesh == r)[0])
         index = tuple(
             slice(None) if ax is None else
             slice(coord[names.index(ax)] * x_local.shape[d],
                   (coord[names.index(ax)] + 1) * x_local.shape[d])
             for d, ax in enumerate(spec))
-        out[index] = parts[r]
+        out[index] = part
     return out
 
 
@@ -564,8 +593,10 @@ def newton_krylov_sharded(
     (``newton_kwargs`` then carries ``delta0``, ``max_steps``, …).
 
     Returns ``(u_local, info)``: this rank's block of the solution and an
-    info equal on every rank (``t`` is the slowest rank's wall).
+    info equal on every rank (``t`` is the slowest rank's wall).  Called on
+    a rank outside ``mesh``, it raises.
     """
+    _member(mesh, "newton_krylov_sharded")
     axis_names = tuple(axis_names if axis_names is not None
                        else mesh.mesh_dim_names)
     newton_kwargs = dict(newton_kwargs or {})
@@ -615,6 +646,7 @@ def integrate_scan_sharded(
     """
     from .timestep import STEPPERS, MarchResult, StepParams
 
+    _member(mesh, "integrate_scan_sharded")
     if isinstance(stepper, str):
         stepper = STEPPERS[stepper]
     if snapshot_every is not None and snapshot_every < 1:

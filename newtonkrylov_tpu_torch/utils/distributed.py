@@ -15,7 +15,9 @@ let them diverge and deadlock.
   group (the tests' and the dry run's CPU rehearsal).
 * The current mesh (:func:`use_mesh`, :func:`current_mesh`) against which
   axis names resolve: :func:`axis_size`, :func:`axis_index`,
-  :func:`axis_group`, :func:`neighbors`.  ``halo.make_mesh`` registers it.
+  :func:`axis_group`, :func:`neighbors`.  ``halo.make_mesh`` registers it
+  and makes its process groups (:func:`init_axis_groups`): a mesh may
+  span part of the group, and its reductions stay inside it.
 * The collectives, each counted in ``COLLECTIVES`` where it is issued:
   :func:`all_reduce` (sum, min, max) and :func:`reduce_scatter`; the ghost
   exchange of :mod:`~newtonkrylov_tpu_torch.halo` counts its exchanges and
@@ -29,6 +31,8 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
+import math
 import os
 import queue as _queue
 import shutil
@@ -45,7 +49,8 @@ __all__ = [
     "initialize", "shutdown", "is_multihost", "host_summary", "run_processes",
     "COLLECTIVES", "reset_collective_counts", "all_reduce", "reduce_scatter",
     "register_mesh", "mesh_key", "mesh_by_key", "current_mesh", "use_mesh",
-    "axis_size", "axis_index", "axis_group", "neighbors", "mesh_device",
+    "init_axis_groups", "axis_size", "axis_index", "axis_group", "neighbors",
+    "mesh_device",
 ]
 
 # Collectives issued by the port's wrappers since the last reset:
@@ -132,6 +137,7 @@ def shutdown() -> None:
     _MESHES.clear()
     _KEYS.clear()
     _CURRENT.clear()
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -234,6 +240,7 @@ def run_processes(fn: Callable, world_size: int, args: Sequence = (), *,
 _MESHES: dict = {}    # key -> DeviceMesh
 _KEYS: dict = {}      # id(mesh) -> key
 _CURRENT: list = []   # stack of current meshes
+_GROUPS: dict = {}    # id(mesh) -> {sorted dims: this rank's process group}
 
 
 def register_mesh(mesh) -> str:
@@ -298,19 +305,51 @@ def axis_index(ax: str, mesh=None) -> int:
     return int(m.get_coordinate()[_dim(m, ax)])
 
 
+def _spans_world(m) -> bool:
+    return m.mesh.numel() == dist.get_world_size()
+
+
+def init_axis_groups(mesh) -> None:
+    """Make the process groups of ``mesh``'s sets of two or more axes (for
+    a 2-D mesh, the mesh's own group), so that a reduction over several
+    axes is one collective that stays inside the mesh.  Collective over
+    the whole process group: every rank calls it, in the same order, also
+    a rank outside the mesh.  A set of all the axes of a mesh that spans
+    the group reduces over the default group and makes none."""
+    ranks = mesh.mesh
+    me = dist.get_rank()
+    groups = {}
+    for k in range(2, mesh.ndim + 1):
+        for dims in itertools.combinations(range(mesh.ndim), k):
+            if k == mesh.ndim and _spans_world(mesh):
+                continue
+            rest = [d for d in range(mesh.ndim) if d not in dims]
+            # one group for each coordinate of the other axes
+            blocks = ranks.permute(*rest, *dims).reshape(-1, math.prod(
+                int(ranks.shape[d]) for d in dims))
+            for block in blocks.tolist():
+                g = dist.new_group(ranks=block)
+                if me in block:
+                    groups[dims] = g
+    _GROUPS[id(mesh)] = groups
+
+
 def axis_group(names: Sequence[str], mesh=None):
-    """The process group spanning mesh axes ``names``: one axis's group, or
-    the default group for all of them (a mesh spans the world), so a
-    reduction over both axes of a 2-D mesh is one collective."""
+    """The process group spanning mesh axes ``names``: one axis's group,
+    the group :func:`init_axis_groups` made for several, or the default
+    group (None) for all the axes of a mesh that spans it."""
     m = _resolve(mesh)
-    names = tuple(names)
-    dims = sorted({_dim(m, ax) for ax in names})
-    if len(dims) == m.ndim:
+    dims = tuple(sorted({_dim(m, ax) for ax in names}))
+    if len(dims) == m.ndim and _spans_world(m):
         return None
     if len(dims) == 1:
         return m.get_group(dims[0])
-    raise NotImplementedError("a reduction over a proper subset of more "
-                              "than one mesh axis")
+    group = _GROUPS.get(id(m), {}).get(dims)
+    if group is None:
+        raise RuntimeError(
+            f"no process group for the axes {tuple(names)} of this mesh: "
+            "build the mesh with halo.make_mesh")
+    return group
 
 
 def neighbors(ax: str, mesh=None):

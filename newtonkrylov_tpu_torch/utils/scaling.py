@@ -7,8 +7,9 @@ keeps a constant local block and the ideal global rate stays constant.
 
 The JAX package runs one program over meshes of the first d devices.  A
 torch process owns one device, so here a mesh of d devices is the first d
-ranks of the running group (one process per device, NCCL on the card, gloo
-on the CPU); the other ranks wait at a barrier while it is measured.  Its
+ranks of the running group (``halo.make_mesh(..., devices=range(d))``; one
+process per device, NCCL on the card, gloo on the CPU); the other ranks
+wait at a barrier while it is measured.  Its
 ranks step in lockstep (each matvec exchanges ghosts with its neighbours),
 and one all-reduce (max) hands every rank the same rate, so every rank
 returns the same points.  Timing is
@@ -56,28 +57,19 @@ def _stencil_jvp_local(up, w):
     return lap + w * u
 
 
-def _sub_mesh(shape, axis_names, device_type):
-    """A DeviceMesh of the first prod(shape) ranks (row-major), made on
-    every rank of the group (``halo.make_mesh`` spans the whole group); a
-    rank outside it holds no coordinate."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    ranks = torch.arange(math.prod(shape)).reshape(shape)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
-
-
 def _measure(shape, axis_names, local_n, chain, repeats, dtype, device):
     """The rate of the exchange + stencil J·v on a mesh of the first
     prod(shape) ranks, the same on every rank of the group."""
-    from ..halo import P, exchange_2d, shard_array
+    from ..halo import P, exchange_2d, make_mesh, shard_array
     from . import default_device
 
     device = torch.device(device) if device is not None else default_device()
-    mesh = _sub_mesh(shape, axis_names, device.type)
+    mesh = make_mesh(shape, axis_names, devices=range(math.prod(shape)),
+                     device_type=device.type)
     spec = P(*axis_names)
     axes = (axis_names[0], axis_names[1] if len(axis_names) > 1 else None)
     rate = 0.0
-    if dist.get_rank() < math.prod(shape):
+    if mesh.get_coordinate() is not None:
         with D.use_mesh(mesh):
             rows = local_n * shape[0]
             cols = local_n * (shape[1] if len(shape) > 1 else 1)

@@ -4,7 +4,8 @@
 ``newton_krylov_jit`` called directly; ``xl8192`` at 64² against the JAX
 driver with the same preconditioners; ``floor_probe``'s probes against the
 JAX script's own (``benchmarks/floor_probe.py``, imported as the JAX side);
-``solve_profile`` at 64² against the JAX driver's counts
+``solve_profile`` at 64² against the JAX driver's counts;
+``dst_precision_probe``'s lanes at 32² against the JAX driver
 (``solve_df32_check`` and ``cheb_probe``: ``test_torch_benchmarks_lanes.py``).
 Every program runs with ``device="cpu"``.
 
@@ -32,8 +33,8 @@ from newtonkrylov_tpu.mg import multigrid2d as j_multigrid2d
 from newtonkrylov_tpu.precond import two_grid as j_two_grid
 from newtonkrylov_tpu.problems import bratu2d as jb
 from newtonkrylov_tpu_torch import df32 as tdd
-from newtonkrylov_tpu_torch.benchmarks import (chain_solve, floor_probe,
-                                               solve_profile, xl8192)
+from newtonkrylov_tpu_torch.benchmarks import (chain_solve, dst_precision_probe,
+                                               floor_probe, solve_profile, xl8192)
 from newtonkrylov_tpu_torch.fftprec import fft_poisson
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
 
@@ -183,3 +184,39 @@ def test_solve_profile_reports_every_phase():
     assert rec["solved"] and bool(info.solved)
     assert rec["counts"] == (int(info.stats.outer_iterations),
                              int(info.stats.inner_iterations))
+
+
+def test_dst_precision_probe_lanes():
+    """The probe's DST lanes at 32² on the CPU: ``"highest"`` and ``"high"``
+    are the same products here (equal records), and take the JAX driver's
+    outer count with its inner count within two (the JAX probe's lane:
+    the DST rebuilt every outer); the single pass (``"default"``) solves
+    within the accepted tolerance.  A timed two-grid lane in the single
+    pass reports its marginal wall."""
+    n = 32
+    recs = {r["precision"]: r for r in dst_precision_probe.run(
+        (n,), device="cpu", timed=False, log=lambda *a: None)}
+    assert set(recs) == set(dst_precision_probe.PRECISIONS)
+    same = {"solved", "outer", "inner", "floor_limited", "true_res", "tol",
+            "finite"}
+    assert ({k: recs["high"][k] for k in same}
+            == {k: recs["highest"][k] for k in same})
+    u0 = jb.initial_guess(n, dtype=jnp.float64) * (1.0 + 1e-6)
+    _, info = _jax_flagship(n, j_fft_poisson(precision="highest"), "outer", u0)
+    print({k: (r["outer"], r["inner"]) for k, r in recs.items()},
+          int(info.stats.outer_iterations), int(info.stats.inner_iterations))
+    assert recs["highest"]["outer"] == int(info.stats.outer_iterations)
+    assert abs(recs["highest"]["inner"] - int(info.stats.inner_iterations)) <= 2
+    for r in recs.values():
+        assert r["solved"] and r["finite"] and r["true_res"] <= r["tol"]
+    tg = dst_precision_probe.lane(n, "default", "cpu", "two-grid", k_hi=2,
+                                  repeats=1, log=lambda *a: None)
+    assert tg["solved"] and tg["true_res"] <= tg["tol"]
+    assert tg["marginal_s"] >= 0.0 and tg["k_hi"] == 2
+
+
+def test_dst_precision_probe_refuses_the_card_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device cpu"):
+        dst_precision_probe.run((N,))

@@ -945,3 +945,66 @@ def test_bratu_2d_cuda_example_on_card(cuda_device):
     assert cg["launches"]["stencil_jvp"] >= cg["inner"]
     assert cg["launches"]["bratu_residual"] >= cg["outer"] + 1
     assert got["max_diff"] <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (24, 40)])
+def test_single_pass_apply_on_card(cuda_device, shape):
+    """``precision="default"`` on the card: each of the four products takes
+    bf16 operands (the rounded basis and intermediate) to an f32 result
+    within 1e-5 relative l2 of the f64 product of the same operands, the
+    apply is that chain of products, and it is within 1e-5 of the plain
+    rounding reference (operands rounded to bf16, f64 sums) and of the CPU
+    apply of the same inputs (bf16 operands multiplied in f32: the
+    summation order alone differs), 1e-4 to 2e-2 from the f32 products."""
+    from newtonkrylov_tpu_torch import fftprec
+
+    n, m = shape
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device="cpu").manual_seed(n + m)
+    r_cpu = torch.randn(shape, generator=gen, dtype=f32)
+    r = r_cpu.to(cuda_device)
+
+    def solver(device, precision):
+        return fftprec.dst_poisson_solver(
+            torch.tensor(-1.0, dtype=f32, device=device),
+            torch.tensor(-3.9, dtype=f32, device=device), shape, f32,
+            "matmul", precision)
+
+    got = solver(cuda_device, "default")(r)
+    rnd, mm = fftprec._products("default", f32, cuda_device)
+    Sr = rnd(fftprec.sine_basis(n, f32, cuda_device))
+    Sc = rnd(fftprec.sine_basis(m, f32, cuda_device))
+    o, dbar = torch.tensor(-1.0, dtype=f32), torch.tensor(-3.9, dtype=f32)
+    ci = 2.0 * torch.cos(torch.pi * torch.arange(1, n + 1, dtype=f64) / (n + 1))
+    cj = 2.0 * torch.cos(torch.pi * torch.arange(1, m + 1, dtype=f64) / (m + 1))
+    lam = (o * (ci[:, None] + cj[None, :] - 4.0) + (dbar + 4.0 * o)).to(f32)
+    lam = lam.to(cuda_device)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    x = r
+    for k in range(4):
+        if k == 2:
+            x = x / lam
+        xr = rnd(x)
+        assert xr.dtype == torch.bfloat16
+        lhs, rhs = (Sr, xr) if k % 2 == 0 else (xr, Sc)
+        x = mm(lhs, rhs)
+        assert x.dtype == f32
+        assert rel(x, lhs.double() @ rhs.double()) <= 1e-5
+    norm = torch.tensor((2.0 / (n + 1)) * (2.0 / (m + 1)), dtype=f32,
+                        device=cuda_device)
+    assert rel(got, x * norm) <= 1e-6
+
+    def bf(t):
+        return t.to(torch.bfloat16).double()
+
+    Srd, Scd = Sr.double(), Sc.double()
+    y = bf(Srd @ bf(r)) @ Scd / lam.double()
+    y = bf(Srd @ bf(y)) @ Scd * norm.double()
+    assert rel(got, y) <= 1e-5
+    cpu = solver("cpu", "default")(r_cpu)
+    assert rel(got.cpu(), cpu) <= 1e-5
+    assert 1e-4 <= rel(got, solver(cuda_device, "highest")(r)) <= 2e-2

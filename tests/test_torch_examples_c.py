@@ -2,7 +2,7 @@
 tests/test_torch_examples_a.py): the convection–diffusion recipe gallery
 at a reduced grid, the 2-D Bratu flagship example with the aligned K1/K2
 lane (their plain versions on the CPU) and the sharded example on four
-gloo ranks, on the CPU in f64."""
+and on eight gloo ranks, on the CPU in f64."""
 
 import re
 
@@ -170,6 +170,44 @@ def test_sharded_bratu_on_four_gloo_ranks(monkeypatch, tmp_path):
     assert d["shape"] == (2, 2) and d["solved"]
     assert d["inner"] == d["single_inner"] == 6 and d["max_diff"] <= 1e-9
     uj, oj, ij = _jax_sharded(jmod, (2, 2), ("i", "j"), ("i", "j"),
+                              M=jfft(axis_names=("i", "j"), scope="global"))
+    assert (d["outer"], d["inner"]) == (oj, ij)
+    assert rel(d["u"], uj) <= 2e-11
+
+
+def test_sharded_bratu_on_eight_gloo_ranks(monkeypatch, tmp_path):
+    """``rank_main`` on 8 spawned gloo ranks at 64² runs the JAX example's
+    own meshes (``meshes(8)``): (2, 2) over ranks 0–3 (``make_mesh``'s
+    ``devices=``; ranks 4–7 sit it out) and (8,) for plain CG, (2, 4) for
+    the global DST.  Each reaches the port's unsharded counts (7 / 241; the
+    DST's 6 inners) with the state within 1e-9, and the JAX package's
+    sharded solve on the same mesh of its 8 virtual devices: equal counts,
+    states within 2e-11 relative (ROADMAP Queue 3 item 20)."""
+    from newtonkrylov_tpu.fftprec import fft_poisson as jfft
+    from newtonkrylov_tpu_torch.examples import sharded_bratu
+    from newtonkrylov_tpu_torch.utils import distributed as D
+
+    ranks = D.run_processes(sharded_bratu.rank_main, 8,
+                            timeout=600.0, store_dir=str(tmp_path))
+    r = ranks[0]
+    assert r["world"] == 8
+    assert set(r["meshes"]) == {(2, 2), (8,)}
+    assert all(set(x["meshes"]) == {(2, 2), (8,)} for x in ranks[:4])
+    assert all(set(x["meshes"]) == {(8,)} for x in ranks[4:])
+    assert all(x["dst"]["inner"] == r["dst"]["inner"] for x in ranks)
+    jmod = jax_example("sharded_bratu", monkeypatch)
+    for shape, axes, spec in (((2, 2), ("i", "j"), ("i", "j")),
+                              ((8,), ("i",), ("i", None))):
+        m = r["meshes"][shape]
+        assert m["solved"] and (m["outer"], m["inner"]) == (7, 241)
+        assert m["max_diff"] <= 1e-9
+        uj, oj, ij = _jax_sharded(jmod, shape, axes, spec)
+        assert (m["outer"], m["inner"]) == (oj, ij)
+        assert rel(m["u"], uj) <= 2e-11
+    d = r["dst"]
+    assert d["shape"] == (2, 4) and d["solved"]
+    assert d["inner"] == d["single_inner"] == 6 and d["max_diff"] <= 1e-9
+    uj, oj, ij = _jax_sharded(jmod, (2, 4), ("i", "j"), ("i", "j"),
                               M=jfft(axis_names=("i", "j"), scope="global"))
     assert (d["outer"], d["inner"]) == (oj, ij)
     assert rel(d["u"], uj) <= 2e-11

@@ -496,6 +496,93 @@ def case_transpose(mesh, axes, bc, overlap, shape):
                 "cgls_iters": int(res.niter)}
 
 
+def case_sub_mesh(mesh, axes, precond, device="cpu"):
+    """A sharded f64 CG solve of Bratu 32² on ``mesh``, a mesh over ranks
+    0–1 of the group of four (``make_mesh(..., devices=[0, 1])``), with no
+    preconditioner or the global DST in the single pass; the unsharded
+    solve with the same preconditioner on rank 0.  On ranks 2–3, outside
+    the mesh, the sharded entry points must raise (their messages).  Every
+    rank records the all-gathers it issued; all meet at a barrier last.
+    The state lives on ``device``: the CPU over gloo, a rank's card over
+    NCCL."""
+    import torch.distributed as dist
+
+    import newtonkrylov_tpu_torch as nkt
+    from newtonkrylov_tpu_torch import halo
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.problems import bratu2d
+    from newtonkrylov_tpu_torch.utils import distributed as D
+
+    n = 32
+    p = bratu2d.default_config(n, lam=5.0)
+    u0 = bratu2d.initial_guess(n, device=device)
+    spec = halo.P(*axes)
+    kw = {"algo": "cg"}
+    single_kw = {"algo": "cg"}
+    if precond == "dst_default":
+        kw["M"] = fft_poisson(axis_names=axes, scope="global",
+                              precision="default")
+        single_kw["M"] = fft_poisson(precision="default")
+    D.reset_collective_counts()
+    try:
+        if mesh.get_coordinate() is None:
+            out = {"outside": True, "raised": {}}
+            F = halo.sharded_residual_2d(_bratu_padded, axes, "dirichlet")
+            calls = {
+                "shard_array": lambda: halo.shard_array(u0, mesh, spec),
+                "gather_array": lambda: halo.gather_array(u0, mesh, spec),
+                "newton_krylov_sharded": lambda: halo.newton_krylov_sharded(
+                    F, u0, p, mesh, spec, newton_kwargs=kw),
+                "integrate_scan_sharded": lambda: halo.integrate_scan_sharded(
+                    "euler", lambda u, pp, t=None: u, u0, p, 0.1, 1, mesh, spec),
+            }
+            for name, call in calls.items():
+                try:
+                    call()
+                    out["raised"][name] = None
+                except ValueError as e:
+                    out["raised"][name] = str(e)
+        else:
+            F = halo.sharded_residual_2d(_bratu_padded, axes, "dirichlet")
+            u, info = halo.newton_krylov_sharded(F, u0, p, mesh, spec,
+                                                 newton_kwargs=kw)
+            out = _solve_out(mesh, spec, u, info, lambda: nkt.newton_krylov_jit(
+                bratu2d.residual_scaled, u0, p, **single_kw))
+            out["outside"] = False
+        out["collectives"] = dict(D.COLLECTIVES)
+        return out
+    finally:
+        dist.barrier()
+
+
+def case_whole_mesh_groups(mesh):
+    """A mesh over the whole group reduces over the default group and
+    makes no group of its own."""
+    from newtonkrylov_tpu_torch.utils import distributed as D
+
+    return {"axis_group_is_default": D.axis_group(("i", "j"), mesh) is None,
+            "own_groups": len(D._GROUPS[id(mesh)])}
+
+
+def make_mesh_errors():
+    """``make_mesh``'s refusals, raised alike on every rank before any
+    group is made."""
+    from newtonkrylov_tpu_torch import halo
+
+    out = {}
+    for name, kw in (("too_few", dict(shape=(8,), axis_names=("i",))),
+                     ("too_few_devices", dict(shape=(3,), axis_names=("i",),
+                                              devices=[0, 1])),
+                     ("repeated", dict(shape=(2,), axis_names=("i",),
+                                       devices=[1, 1]))):
+        try:
+            halo.make_mesh(device_type="cpu", **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
 def _run_cases(cases):
     """Run ``[(name, fn, args)]`` on this rank; a case that raises records
     its traceback instead of a result."""
@@ -512,7 +599,12 @@ def world4_cases():
     from newtonkrylov_tpu_torch import halo
 
     mesh = halo.make_mesh((2, 2), ("i", "j"), device_type="cpu")
-    return _run_cases([
+    rows4 = halo.make_mesh((4,), ("i",), device_type="cpu")
+    # meshes over ranks 0-1 of the four, made on every rank
+    rows2 = halo.make_mesh((2,), ("i",), devices=[0, 1], device_type="cpu")
+    grid12 = halo.make_mesh((1, 2), ("i", "j"), devices=[0, 1],
+                            device_type="cpu")
+    return {"make_mesh_errors": make_mesh_errors(), **_run_cases([
         ("exchange_2d", case_exchange_2d, (mesh,)),
         ("bratu2d", case_bratu2d, (mesh,)),
         ("gmres", case_gmres, (mesh,)),
@@ -523,7 +615,27 @@ def world4_cases():
         ("snapshots", case_snapshots, (mesh,)),
         ("overlap_oracle", case_overlap_oracle, (mesh,)),
         ("convert", case_convert, (mesh,)),
-    ] + _transpose_cases(mesh, halo.make_mesh((4,), ("i",), device_type="cpu")))
+        ("whole_mesh_groups", case_whole_mesh_groups, (mesh,)),
+    ] + _transpose_cases(mesh, rows4) + [
+        ("sub_mesh_rows", case_sub_mesh, (rows2, ("i", None), "none")),
+        ("sub_mesh_grid_dst", case_sub_mesh,
+         (grid12, ("i", "j"), "dst_default")),
+    ])}
+
+
+def world4_nccl_cases():
+    """The sub-mesh cases over NCCL, one card a rank: the meshes over ranks
+    0–1 of four, made on every rank."""
+    from newtonkrylov_tpu_torch import halo
+
+    rows2 = halo.make_mesh((2,), ("i",), devices=[0, 1], device_type="cuda")
+    grid12 = halo.make_mesh((1, 2), ("i", "j"), devices=[0, 1],
+                            device_type="cuda")
+    return _run_cases([
+        ("sub_mesh_rows", case_sub_mesh, (rows2, ("i", None), "none", "cuda")),
+        ("sub_mesh_grid_dst", case_sub_mesh,
+         (grid12, ("i", "j"), "dst_default", "cuda")),
+    ])
 
 
 def _transpose_cases(grid, rows):
@@ -532,12 +644,28 @@ def _transpose_cases(grid, rows):
             for name, axes, bc, overlap, shape in TRANSPOSE_CASES]
 
 
+def case_axis_subsets(mesh):
+    """Each rank's global rank summed over every set of axes of a 2×2×2
+    mesh: a pair of axes reduces over its own group of four ranks."""
+    from newtonkrylov_tpu_torch.utils import distributed as D
+
+    import torch.distributed as dist
+
+    x = torch.tensor([float(dist.get_rank())], dtype=torch.float64)
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for names in (("a", "b"), ("a", "c"), ("b", "c"), ("a", "b", "c"), ("c",)):
+        out["".join(names)] = float(D.all_reduce(x, names, "sum", mesh))
+    return out
+
+
 def world8_cases():
     from newtonkrylov_tpu_torch import halo
 
     rows = halo.make_mesh((8,), ("i",), device_type="cpu")
     grid = halo.make_mesh((2, 4), ("i", "j"), device_type="cpu")
+    cube = halo.make_mesh((2, 2, 2), ("a", "b", "c"), device_type="cpu")
     cases = [("rows_8way", case_rows_8way, (rows,)),
+             ("axis_subsets", case_axis_subsets, (cube,)),
              ("exchange_1d", case_exchange_1d, (rows,)),
              ("bratu1d", case_bratu1d, (rows,)),
              ("overlap_structure", case_overlap_structure, (grid,))]
@@ -550,16 +678,24 @@ def world8_cases():
 # -- Parent side ---------------------------------------------------------------
 
 
-def _spawn(fn, world, tmp_path_factory):
+def _spawn(fn, world, tmp_path_factory, device="cpu"):
     from newtonkrylov_tpu_torch.utils import distributed as D
 
-    store = tmp_path_factory.mktemp(f"store{world}")
-    return D.run_processes(fn, world, timeout=RANK_TIMEOUT, store_dir=str(store))
+    store = tmp_path_factory.mktemp(f"store{world}{device}")
+    return D.run_processes(fn, world, timeout=RANK_TIMEOUT, store_dir=str(store),
+                           device=device)
 
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     return _spawn(world4_cases, 4, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def world4_nccl(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (one NCCL rank a card)")
+    return _spawn(world4_nccl_cases, 4, tmp_path_factory, device="cuda")
 
 
 @pytest.fixture(scope="module")
@@ -1054,3 +1190,114 @@ def test_cgls_on_sharded_residual(world4, name):
     assert bool(ref.converged)
     assert got["cgls_iters"] == ref.niter
     _assert_rel(got["cgls"], _np(ref.x), 1e-10)
+
+
+# -- Meshes over part of the group ---------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["sub_mesh_rows", "sub_mesh_grid_dst"])
+def test_sub_mesh_solve_equals_unsharded(world4, name):
+    """A (2,) mesh and a (1, 2) mesh over ranks 0–1 of a group of four
+    (``make_mesh(..., devices=[0, 1])``; the JAX package's meshes over the
+    first devices): the sharded f64 CG solve — plain, and with the global
+    DST in the single pass (``precision="default"``) — takes the unsharded
+    solve's counts with the state within 1e-12 relative; its reductions
+    and its one all-gather (``gather_array``) stay on the mesh's ranks, so
+    ranks 2–3 issue none."""
+    _check_sub_mesh(world4, name)
+
+
+def _check_sub_mesh(ranks, name):
+    got = _result(ranks, name)
+    assert got["outside"] is False
+    single = got["single"]
+    assert got["solved"] and single["solved"]
+    assert (got["outer"], got["inner"]) == (single["outer"], single["inner"])
+    _assert_rel(got["u"], single["u"], TOL_SINGLE)
+    assert got["u"].shape == (32, 32)
+    assert ranks[1][name]["outside"] is False
+    np.testing.assert_array_equal(ranks[1][name]["u"], got["u"])
+    for r in ranks:
+        n_gather = r[name]["collectives"]["all_gather"]
+        if r[name]["outside"]:
+            assert r[name]["collectives"] == {k: 0 for k in r[name]["collectives"]}
+        else:
+            assert n_gather == 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sub_mesh_rows", "sub_mesh_grid_dst"])
+def test_sub_mesh_solve_over_nccl(world4_nccl, name):
+    """The same sub-mesh solves on four cards over NCCL (one rank a card,
+    the state on the card): the mesh's group is an NCCL subgroup made on
+    every rank, ranks 2–3 skip the solve and raise on the sharded entry
+    points, and the solve takes the unsharded counts with the state within
+    1e-12 relative.  Run where four cards are present:
+
+        python -m pytest --noconftest -m cuda tests/test_torch_halo.py -k nccl -s
+    """
+    got = _check_sub_mesh(world4_nccl, name)
+    single = got["single"]
+    print(f"[sub-mesh nccl] {name}: sharded {got['outer']} / {got['inner']}, "
+          f"unsharded {single['outer']} / {single['inner']}, max|du| / max|u| "
+          f"{np.abs(got['u'] - single['u']).max() / np.abs(single['u']).max():.3e}; "
+          "collectives by rank "
+          + "; ".join(str(r[name]["collectives"]) for r in world4_nccl))
+    _check_outside(world4_nccl, name)
+
+
+@pytest.mark.parametrize("name", ["sub_mesh_rows", "sub_mesh_grid_dst"])
+def test_sub_mesh_outside_ranks_raise(world4, name):
+    """On ranks 2–3, outside the mesh, ``shard_array``, ``gather_array``,
+    ``newton_krylov_sharded`` and ``integrate_scan_sharded`` raise a
+    ValueError that says so, and take no part in the mesh's collectives."""
+    _check_outside(world4, name)
+
+
+def _check_outside(ranks, name):
+    for rank in (2, 3):
+        r = ranks[rank][name]
+        if "error" in r:
+            pytest.fail(r["error"])
+        assert r["outside"] is True
+        assert set(r["raised"]) == {"shard_array", "gather_array",
+                                    "newton_krylov_sharded",
+                                    "integrate_scan_sharded"}
+        for call, msg in r["raised"].items():
+            assert msg is not None and "outside the mesh" in msg, (call, msg)
+
+
+def test_make_mesh_refuses_too_few_devices(world4):
+    """``make_mesh`` raises the JAX package's ValueError when the mesh needs
+    more devices than it is given (the group's, or ``devices``), and
+    refuses a repeated rank."""
+    errs = world4[0]["make_mesh_errors"]
+    assert errs["too_few"] == "need 8 devices for mesh (8,), have 4"
+    assert errs["too_few_devices"] == "need 3 devices for mesh (3,), have 2"
+    assert errs["repeated"] is not None and "distinct" in errs["repeated"]
+    assert all(r["make_mesh_errors"] == errs for r in world4)
+
+
+def test_whole_group_mesh_reduces_over_the_default_group(world4):
+    """A mesh that spans the group is what it was: a reduction over all of
+    its axes runs on the default group, and no group of its own is made."""
+    got = _result(world4, "whole_mesh_groups")
+    assert got == {"axis_group_is_default": True, "own_groups": 0}
+
+
+def test_reduction_over_a_subset_of_axes(world8):
+    """On a 2×2×2 mesh a reduction over two of its three axes runs on the
+    group ``make_mesh`` made for that pair: the sum of the global ranks
+    that share this rank's coordinate on the third axis."""
+    ranks = np.arange(8).reshape(2, 2, 2)
+    for r in world8:
+        got = r["axis_subsets"]
+        if "error" in got:
+            pytest.fail(got["error"])
+        a, b, c = got["coord"]
+        assert got["ab"] == ranks[:, :, c].sum()
+        assert got["ac"] == ranks[:, b, :].sum()
+        assert got["bc"] == ranks[a, :, :].sum()
+        assert got["abc"] == ranks.sum()
+        assert got["c"] == ranks[a, b, :].sum()
