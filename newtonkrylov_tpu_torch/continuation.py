@@ -120,7 +120,8 @@ def pseudo_transient(
 
     outer, inner, u, _, n_res, _, _, hist, blown = while_loop(cond, body, (
         counter(s.n_res0), counter(s.n_res0), s.u0, s.res0, s.n_res0, delta,
-        eta, hist, torch.zeros((), dtype=torch.bool, device=device)))
+        eta, hist, torch.zeros((), dtype=torch.bool, device=device)),
+        name="outer")
 
     info = NewtonInfo(
         solved=(n_res <= tol) & ~blown,

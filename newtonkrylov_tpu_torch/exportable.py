@@ -34,6 +34,8 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
+from .utils.profiling import span
+
 __all__ = ["exporting", "while_loop", "fori_loop", "counter", "record",
            "jvp", "jvp_graph", "vjp_graph", "JVPGraph", "require_eager"]
 
@@ -68,18 +70,27 @@ def record(hist: torch.Tensor, i, value: torch.Tensor) -> torch.Tensor:
     return torch.where(pos == i, value.to(hist.dtype), hist)
 
 
-def while_loop(cond: Callable, body: Callable, state):
+def while_loop(cond: Callable, body: Callable, state, name: str = None):
     """``state ← body(*state)`` while ``cond(*state)``; returns the state.
 
-    Eagerly a Python loop that reads ``cond``'s boolean back each trip.
+    Eagerly a Python loop that reads ``cond``'s boolean back each trip:
+    each read is a ``read`` span and each body, given a ``name``, a span of
+    that name (:func:`~newtonkrylov_tpu_torch.utils.profiling.span`).
     When exporting, ``torch._higher_order_ops.while_loop`` over the
     flattened state: every leaf must be a tensor whose shape and dtype the
     body keeps (a tree of them: namedtuples, tuples, dicts)."""
     state = tuple(state)
     if not exporting():
-        while bool(cond(*state)):
-            state = tuple(body(*state))
-        return state
+        while True:
+            with span("read"):
+                go = bool(cond(*state))
+            if not go:
+                return state
+            if name is None:
+                state = tuple(body(*state))
+            else:
+                with span(name):
+                    state = tuple(body(*state))
     from torch._higher_order_ops import while_loop as hop
 
     flat, spec = pytree.tree_flatten(state)

@@ -49,10 +49,11 @@ from . import solvers
 from .exportable import (counter, exporting, jvp_graph, record,
                          require_eager, vjp_graph, while_loop)
 from .forcing import EisenstatWalker, Forcing
-from .operator import JacobianOperator, ShiftedOperator
+from .operator import JacobianOperator, LinearOperator, ShiftedOperator
 from .spaces import EuclideanSpace, VectorSpace
 from .tree import (tree_axpy, tree_dtype, tree_leaves, tree_map, tree_size,
                    tree_sub, tree_where)
+from .utils.profiling import is_recording, span, spanned
 
 __all__ = ["Stats", "NewtonInfo", "NewtonOptions", "newton_krylov",
            "newton_krylov_jit"]
@@ -197,6 +198,7 @@ class _Setup(NamedTuple):
     vjp_graph: Optional[Callable] = None  # exporting, CGLS: Jᵀ·w, traced once
 
 
+@spanned("setup")
 def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
            krylov_dtype, residual_df, residual_dtype=None, linesearch=None,
            floor_rtol=None) -> _Setup:
@@ -250,12 +252,42 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
                   outer_res, graph, vgraph)
 
 
+@spanned("precond.build")
 def _static_preconditioners(F, p, s: _Setup, M, N, residual_df):
     """``(M(J₀), N(J₀))`` on the u₀ operator of the precision mode, for
     ``precond_refresh="once"``."""
     J0, _ = _linearize_for_inner(F, p, s.u0, s.res0, s.krylov_dtype,
                                  residual_df, s.jvp_graph, s.vjp_graph)
     return (M(J0) if M is not None else None), (N(J0) if N is not None else None)
+
+
+class _SpannedOperator(LinearOperator):
+    """The inner solve's operator with each J·v a ``matvec`` span; every
+    other attribute is the wrapped operator's."""
+
+    def __init__(self, A):
+        self.A = A
+
+    def mv(self, v):
+        with span("matvec"):
+            return self.A.mv(v)
+
+    def __getattr__(self, attr):
+        return getattr(self.A, attr)
+
+
+@spanned("precond.build")
+def _build(factory, A):
+    """A preconditioner factory's call on the outer's operator."""
+    return factory(A)
+
+
+def _spanned_apply(apply):
+    """A preconditioner apply with each call a ``precond`` span."""
+    def call(v):
+        with span("precond"):
+            return apply(v)
+    return call
 
 
 def _newton_step(F, p, s: _Setup, u, res, n_res, rtol, *, space, algo,
@@ -280,32 +312,43 @@ def _newton_step(F, p, s: _Setup, u, res, n_res, rtol, *, space, algo,
     # ‖F‖ is small, a stall in f32.
     kw.setdefault("atol", 0.0)
     if N is not None:
-        kw["N"] = n_static if n_static is not None else N(A)
+        kw["N"] = n_static if n_static is not None else _build(N, A)
     if M is not None:
-        kw["M"] = m_static if m_static is not None else M(A)
+        kw["M"] = m_static if m_static is not None else _build(M, A)
     if rtol is not None:
         b_leaf = tree_leaves(b)[0]
         kw["rtol"] = torch.as_tensor(rtol, dtype=tree_dtype(b),
                                      device=b_leaf.device)
-    result = solvers.solve(algo, A, b, **kw)
+    if is_recording():
+        # each J·v and preconditioner apply a span; with spans off the
+        # solver gets the operator and the applies themselves
+        A = _SpannedOperator(A)
+        for k in ("M", "N"):
+            if k in kw:
+                kw[k] = _spanned_apply(kw[k])
+    with span("krylov"):
+        result = solvers.solve(algo, A, b, **kw)
     if residual_df is not None:
         u_new = _dd.tree_add_f32(u, tree_map(lambda l: -l.to(torch.float32),
                                              result.x))
-        res_new = residual_df(u_new, p)
-        return u_new, res_new, space.norm(res_new.hi), result.niter
+        with span("accept"):
+            res_new = residual_df(u_new, p)
+            n_new = space.norm(res_new.hi)
+        return u_new, res_new, n_new, result.niter
     d = result.x
     if s.krylov_dtype is not None:
         state_dt = tree_dtype(u)
         d = tree_map(lambda l: l.to(state_dt), d)
-    if linesearch == "armijo":
-        u_new, res_new, n_new = _armijo_step(F, p, space, u, d, n_res)
-        if residual_dtype is not None:
+    with span("accept"):
+        if linesearch == "armijo":
+            u_new, res_new, n_new = _armijo_step(F, p, space, u, d, n_res)
+            if residual_dtype is not None:
+                res_new = s.outer_res(u_new)
+                n_new = space.norm(res_new)
+        else:
+            u_new = tree_sub(u, d)
             res_new = s.outer_res(u_new)
             n_new = space.norm(res_new)
-    else:
-        u_new = tree_sub(u, d)
-        res_new = s.outer_res(u_new)
-        n_new = space.norm(res_new)
     return u_new, res_new, n_new, result.niter
 
 
@@ -316,6 +359,7 @@ def _finish(s: _Setup, u):
     return u
 
 
+@spanned("solve")
 def newton_krylov(
     F: Callable,
     u0: Any,
@@ -393,7 +437,8 @@ def newton_krylov(
                 callback(u, res, n)
 
     u, res, n_res_t = s.u0, s.res0, s.n_res0
-    n_res, tol = float(n_res_t), float(s.tol)
+    with span("read"):
+        n_res, tol = float(n_res_t), float(s.tol)
     report(u, res, n_res)
     eta = forcing.initial() if forcing is not None else None
     if verbose > 0:
@@ -406,12 +451,14 @@ def newton_krylov(
 
     stats = Stats(0, 0, n_res)
     while n_res > tol and stats.outer_iterations <= max_niter:
-        u, res, n_res_t, niter = _newton_step(
-            F, p, s, u, res, n_res_t, eta, space=space, algo=algo,
-            krylov_kwargs=krylov_kwargs, M=M, N=N, m_static=m_static,
-            n_static=n_static, residual_df=residual_df,
-            residual_dtype=residual_dtype, linesearch=linesearch)
-        n_res_prior, n_res = n_res, float(n_res_t)
+        with span("outer"):
+            u, res, n_res_t, niter = _newton_step(
+                F, p, s, u, res, n_res_t, eta, space=space, algo=algo,
+                krylov_kwargs=krylov_kwargs, M=M, N=N, m_static=m_static,
+                n_static=n_static, residual_df=residual_df,
+                residual_dtype=residual_dtype, linesearch=linesearch)
+        with span("read"):
+            n_res_prior, n_res = n_res, float(n_res_t)
         report(u, res, n_res)
         if not math.isfinite(n_res):
             print(f"[newton_krylov] ERROR: inner solver blew up, stats={stats}")
@@ -432,6 +479,7 @@ def newton_krylov(
         floor_limited=bool(s.floor_limited))
 
 
+@spanned("solve")
 def newton_krylov_jit(
     F: Callable,
     u0: Any,
@@ -528,7 +576,7 @@ def newton_krylov_jit(
 
     outer, inner, u, _, n_res, _, hist, blown = while_loop(cond, body, (
         counter(s.n_res0), counter(s.n_res0), s.u0, s.res0, s.n_res0, eta,
-        hist, torch.zeros((), dtype=torch.bool, device=device)))
+        hist, torch.zeros((), dtype=torch.bool, device=device)), name="outer")
 
     info = NewtonInfo(
         solved=(n_res <= tol) & ~blown,

@@ -30,6 +30,7 @@ from .exportable import exporting
 from .exportable import jvp_graph as _jvp_graph
 from .exportable import vjp_graph as _vjp_graph
 from .tree import tree_dtype, tree_leaves, tree_map, tree_size
+from .utils.profiling import span
 
 __all__ = [
     "LinearOperator",
@@ -80,7 +81,7 @@ class JacobianOperator(LinearOperator):
             self.res = F(u, p)
             self._jvp = graph.linearize(u, p)
             return
-        with warnings.catch_warnings():
+        with span("linearize"), warnings.catch_warnings():
             # linearize's constant folding builds its folded module before
             # attaching the constants it references and warns about it;
             # the module it returns is complete

@@ -94,7 +94,7 @@ def cg(
 
     k, x, _, _, _, resnorm, converged, breakdown = while_loop(cond, body, (
         counter(resnorm), x0, r, p, rz, resnorm, converged,
-        torch.zeros_like(converged)))
+        torch.zeros_like(converged)), name="cg.step")
     return KrylovResult(x, k, resnorm, converged, breakdown)
 
 
@@ -159,7 +159,8 @@ def _cg_pipelined(Aop, Mop, b, x0, itmax, atol, rtol, space, dtype):
         torch.zeros((), dtype=torch.int64, device=rr0.device),
         torch.ones_like(converged), x0, r, u, w, zeros, tree_zeros_like(b),
         tree_zeros_like(b), tree_zeros_like(b), torch.ones_like(zero),
-        torch.ones_like(zero), converged, torch.zeros_like(converged)))
+        torch.ones_like(zero), converged, torch.zeros_like(converged)),
+        name="cg.step")
     resnorm = torch.sqrt(space.dot(r, r).real)
     # the count is a tensor in the body; eagerly it leaves as an int, as
     # every solver's does

@@ -10,21 +10,63 @@ Counterpart of ``newtonkrylov_tpu/utils/profiling.py``:
   directory as a Chrome/TensorBoard trace file;
 * :func:`annotate` — a named range in that trace
   (``torch.profiler.record_function``);
-* :func:`solve_report` — a throughput summary of a finished Newton solve.
+* :func:`solve_report` — a throughput summary of a finished Newton solve;
+* :func:`span` — a named range at one of the program's layer boundaries,
+  kept in memory (:func:`spans`) and annotated into a :func:`trace`, while
+  spans record (:func:`recording`); :func:`spanned` makes a function's
+  calls spans.
+
+**Spans.**  The program opens a span where a layer's work happens:
+
+=================  ==========================================================
+``serve``          ``utils.serving.Loaded.call``
+``solve``          ``newton_krylov_jit`` / ``newton_krylov``, call to return
+``setup``          the initial residual, tolerance and floor estimate
+``precond.build``  a preconditioner factory's call (once, or every outer)
+``outer``          each Newton (or Ψtc) iteration
+``read``           each loop condition read back to the host (``while_loop``)
+``linearize``      ``JacobianOperator``'s ``torch.func.linearize``
+``krylov``         the inner solve of an outer
+``cg.step``        each CG iteration
+``matvec``         each J·v of the inner solve
+``precond``        each M⁻¹ (or N⁻¹) apply of the inner solve
+``accept``         the outer's acceptance residual and its norm
+``gc``             each collection of Python's garbage collector (in
+                   memory only, not in a trace: a collection can run
+                   inside a tracer)
+=================  ==========================================================
+
+Spans record while a ``torch.profiler`` profile is active on the thread
+(so a :func:`trace` shows the program's layers by name) and inside
+:func:`recording`; never while ``torch.export`` traces the caller, so an
+exported program holds no span.  Otherwise :func:`span` returns one shared
+null context.  A record is ``(name, start_ns, end_ns, id, parent,
+solve)`` in ``time.time_ns()``, the clock of the profiler's timestamps;
+``parent`` is the innermost span open on the thread when it started and
+``solve`` the id of the enclosing ``solve`` span (0: none).  The newest
+:data:`SPAN_CAPACITY` records are kept; :func:`dropped` counts the rest.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import gc
+import itertools
+import threading
 import time
 from collections import defaultdict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
+from .. import exportable
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["PhaseTimer", "trace", "annotate", "solve_report", "time_chain"]
+__all__ = ["PhaseTimer", "trace", "annotate", "solve_report", "time_chain",
+           "span", "spanned", "recording", "is_recording", "spans", "dropped",
+           "SpanRecord", "SPAN_CAPACITY"]
 
 
 def _synchronize(tree: Any) -> None:
@@ -141,6 +183,161 @@ def trace(logdir: str):
 def annotate(name: str):
     """A named range in a :func:`trace` (a host annotation)."""
     return torch.profiler.record_function(name)
+
+
+SPAN_CAPACITY = 1 << 17  # records kept; older ones are dropped and counted
+
+
+class SpanRecord(NamedTuple):
+    """One finished span (see the module)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int  # 0: none open on the thread
+    solve: int   # 0: outside any solve
+
+
+class Dropped(NamedTuple):
+    """Records pushed out of the store: how many, and the end of the
+    newest of them (a window that ends before it lost nothing)."""
+
+    count: int
+    newest_end_ns: int
+
+
+class _Store:
+    """The in-memory spans: the records, the open spans of each thread,
+    the count of :func:`recording` blocks open.  No lock: a garbage
+    collection can open a ``gc`` span between any two statements here, on
+    the same thread, and a deque's append is atomic."""
+
+    def __init__(self):
+        self.records = collections.deque(maxlen=SPAN_CAPACITY)
+        self.n_dropped = 0
+        self.dropped_end_ns = 0
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+        self.forced = 0
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, rec: SpanRecord) -> None:
+        if len(self.records) == SPAN_CAPACITY:
+            self.n_dropped += 1
+            self.dropped_end_ns = max(self.dropped_end_ns,
+                                      self.records[0].end_ns)
+        self.records.append(rec)
+
+
+_STORE = _Store()
+_NULL = contextlib.nullcontext()
+
+
+def is_recording() -> bool:
+    """Whether a span opened now records: never while exporting; else
+    inside :func:`recording` or while a ``torch.profiler`` profile is
+    active on the thread."""
+    if exportable.exporting():
+        return False
+    return _STORE.forced > 0 or torch._C._autograd._profiler_enabled()
+
+
+class _Span:
+    """A recording span; under a profiler also an :func:`annotate` range
+    (``ranged``)."""
+
+    __slots__ = ("name", "id", "parent", "solve", "start_ns", "_range")
+
+    def __init__(self, name: str, ranged: bool = True):
+        self.name = name
+        self._range = (annotate(name) if ranged
+                       and torch._C._autograd._profiler_enabled() else None)
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        st = _STORE.stack()
+        self.id = next(_STORE.ids)
+        self.parent, outer_solve = st[-1] if st else (0, 0)
+        self.solve = outer_solve or (self.id if self.name == "solve" else 0)
+        st.append((self.id, self.solve))
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        st = _STORE.stack()
+        if st and st[-1][0] == self.id:
+            st.pop()
+        _STORE.add(SpanRecord(self.name, self.start_ns, end_ns, self.id,
+                              self.parent, self.solve))
+        return False
+
+
+def span(name: str):
+    """A context manager around one layer's work (see the module): a
+    recorded span while spans record, else a shared null context (while
+    exporting a fresh ``contextlib.nullcontext``, which Dynamo traces)."""
+    if exportable.exporting():
+        return contextlib.nullcontext()
+    if _STORE.forced or torch._C._autograd._profiler_enabled():
+        return _Span(name)
+    return _NULL
+
+
+def spanned(name: str):
+    """A decorator: each call of the function is a span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, with or without a profiler."""
+    _STORE.forced += 1
+    try:
+        yield
+    finally:
+        _STORE.forced -= 1
+
+
+def spans() -> List[SpanRecord]:
+    """The kept records, oldest first."""
+    return list(_STORE.records)
+
+
+def dropped() -> Dropped:
+    """The records the store has dropped (see :class:`Dropped`)."""
+    return Dropped(_STORE.n_dropped, _STORE.dropped_end_ns)
+
+
+def _gc_span(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: one ``gc`` span per collection, in memory
+    only: a collection can start inside a tracer (``make_fx``, Dynamo),
+    which would take a profiler range for an op of its graph."""
+    local = _STORE.local
+    if phase == "start":
+        local.gc = (_Span("gc", ranged=False).__enter__() if is_recording()
+                    else None)
+    elif getattr(local, "gc", None) is not None:
+        g, local.gc = local.gc, None
+        g.__exit__(None, None, None)
+
+
+gc.callbacks.append(_gc_span)
 
 
 def solve_report(info, n_unknowns: int, wall_s: Optional[float] = None) -> str:

@@ -39,6 +39,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from .profiling import span
+
 __all__ = ["export_solver", "save_exported", "load_exported"]
 
 
@@ -90,7 +92,10 @@ class Loaded:
         self._module = program.module()
 
     def call(self, *args):
-        return self._module(*args)
+        """Run the loaded solve: one ``serve`` span (the program inside
+        holds none: an export drops the ranges)."""
+        with span("serve"):
+            return self._module(*args)
 
 
 def load_exported(path: str) -> Loaded:
