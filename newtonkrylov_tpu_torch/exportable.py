@@ -16,11 +16,16 @@ only the loop around it differs.
 * :func:`counter` — an iteration count or bound: a Python int eagerly, a
   0-d int64 tensor on the state's device when exporting.
 * :func:`record` — write one entry of a preallocated history.
-* :func:`jvp` — ``(u, v, p) ↦ J(u)·v`` of a residual ``F(u, p)``: eagerly
-  :func:`torch.func.jvp`; when exporting a :class:`JVPGraph` traced once,
-  ahead of the loops, since ``torch.func`` transforms cannot be traced
-  inside a ``while_loop`` body.  :func:`vjp_graph` traces ``Jᵀ·w`` the
-  same way, for the adjoint CGLS applies inside its loop.
+* :func:`jvp_graph` — J·v of a residual ``F(u, p)`` as a
+  :class:`JVPGraph` traced once with fake tensors: the linearization,
+  evaluated at each new point, and the tangent map, replayed for each J·v.
+  The Newton drivers trace it once a solve, ahead of their loops, eagerly
+  (every outer then linearizes without a trace) and when exporting (since
+  ``torch.func`` transforms cannot be traced inside a ``while_loop``
+  body).  :func:`vjp_graph` traces ``Jᵀ·w`` the same way, for the adjoint
+  CGLS applies inside an exported loop.
+* :func:`jvp` — ``(u, v, p) ↦ J(u)·v``: eagerly :func:`torch.func.jvp`,
+  when exporting a :class:`JVPGraph`.
 
 A ``while_loop`` body is traced by Dynamo and may not mutate Python state:
 caches that the body would fill (``MaskedSpace``'s mask casts, the DST
@@ -213,6 +218,23 @@ def _split(gm, tangent_inputs):
     return fx.GraphModule(gm, primal), fx.GraphModule(gm, tan)
 
 
+def _forward_ad(F: Callable, u, p, v):
+    """J·v of ``F(·, p)`` at ``u`` by forward AD, as
+    :func:`torch.func.linearize` traces it (an output with no tangent gives
+    zeros).  ``torch.func.jvp`` differs where a Python scalar meets a 0-d
+    tensor: its tangent takes the scalar's dtype."""
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        out = F(pytree.tree_map(fwAD.make_dual, u, v), p)
+
+        def tangent(dual):
+            primal, t = fwAD.unpack_dual(dual)
+            return torch.zeros_like(primal) if t is None else t
+
+        return pytree.tree_map_only(torch.Tensor, tangent, out)
+
+
 def _linear_graph(F: Callable, u, p, cotangent: bool) -> JVPGraph:
     """J·v (or, ``cotangent``, Jᵀ·w) of ``F(·, p)`` traced by ``make_fx``
     and split into the linearization and the linear map (:func:`jvp_graph`,
@@ -237,7 +259,7 @@ def _linear_graph(F: Callable, u, p, cotangent: bool) -> JVPGraph:
         if cotangent:
             out = torch.func.vjp(lambda x: F(x, pp), uu)[1](v)[0]
         else:
-            out = torch.func.jvp(lambda x: F(x, pp), (uu,), (v,))[1]
+            out = _forward_ad(F, uu, pp, v)
         flat, spec = pytree.tree_flatten(out)
         out_spec.append(spec)
         return tuple(flat)
@@ -251,7 +273,11 @@ def _linear_graph(F: Callable, u, p, cotangent: bool) -> JVPGraph:
         examples = ([_example(l) for l in u_leaves]
                     + [_example(p_leaves[i]) for i in idx]
                     + [_example(l) for l in u_leaves])
-        gm = make_fx(linear_flat, tracing_mode="fake")(*examples)
+        # a tensor the residual closes over becomes a constant of the
+        # graph (refused, it fails the trace in a way that leaves torch's
+        # dispatch-key state changed for the rest of the thread)
+        gm = make_fx(linear_flat, tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(*examples)
     for node in list(gm.graph.nodes):
         if (node.op == "call_function" and not node.users
                 and not isinstance(node.meta.get("val"), torch.Tensor)):

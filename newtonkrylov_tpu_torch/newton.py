@@ -135,8 +135,9 @@ def _linearize_for_inner(F, p, u, res, krylov_dtype, residual_df,
     * low-precision refinement — state and carried residual cast down;
     * plain — linearize at the state.
 
-    ``jvp_graph`` (``vjp_graph``) is the J·v (Jᵀ·w) graph an export traced
-    ahead of its loops.
+    ``jvp_graph`` is the J·v graph the solve traced in :func:`_setup`
+    (None: ``torch.func.linearize`` every call); ``vjp_graph`` the Jᵀ·w
+    graph an export traced ahead of its loops.
     """
     u_lin, p_lin = _linearization_point(p, u, krylov_dtype, residual_df)
     J = JacobianOperator(F, u_lin, p_lin, jvp_graph=jvp_graph,
@@ -194,8 +195,24 @@ class _Setup(NamedTuple):
     krylov_dtype: Any
     out_f64: bool      # df32 path: return hi + lo as float64
     outer_res: Callable  # u ↦ its acceptance residual
-    jvp_graph: Optional[Callable] = None  # exporting: J·v, traced once
+    jvp_graph: Optional[Callable] = None  # J·v, traced once a solve (None:
+    #   the residual does not trace with fake tensors)
     vjp_graph: Optional[Callable] = None  # exporting, CGLS: Jᵀ·w, traced once
+
+
+def _trace_jvp(F, point):
+    """The J·v graph of ``F`` at states and parameters shaped like
+    ``point`` (:func:`~newtonkrylov_tpu_torch.exportable.jvp_graph`), or,
+    eagerly, None where ``F`` cannot be traced with fake tensors (a
+    residual that reads a value back to the host): every linearization of
+    the solve then runs ``torch.func.linearize``."""
+    if exporting():
+        return jvp_graph(F, *point)
+    with span("linearize.trace"):
+        try:
+            return jvp_graph(F, *point)
+        except Exception:  # any trace failure falls back to linearize
+            return None
 
 
 @spanned("setup")
@@ -209,6 +226,7 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
     otherwise; ``krylov_kwargs`` gains the GMRES parity basis.  On the df32
     path ``floor_rtol`` clamps the tolerance to that multiple of the
     measured representation floor (:func:`~newtonkrylov_tpu_torch.df32.floor_estimate`).
+    The residual's J·v is traced here, once a solve (:func:`_trace_jvp`).
     """
     if linesearch not in (None, "armijo"):
         raise ValueError(f"unknown linesearch {linesearch!r}; use None or \"armijo\"")
@@ -235,10 +253,10 @@ def _setup(F, u0, p, *, space, algo, krylov_kwargs, tol_rel, tol_abs,
     _gmres_parity_default(krylov_kwargs, algo, res0_main)
     n_res0 = space.norm(res0_main)
     tol = tol_rel * n_res0 + tol_abs
-    # an export traces the linearization once, ahead of the loops (and the
-    # transpose, for CGLS)
+    # the linearization is traced once, ahead of the loops (and, by an
+    # export, the transpose, for CGLS)
     point = _linearization_point(p, u0, krylov_dtype, residual_df)
-    graph = jvp_graph(F, *point) if exporting() else None
+    graph = _trace_jvp(F, point)
     vgraph = vjp_graph(F, *point) if exporting() and algo == "cgls" else None
     floor_limited = torch.zeros((), dtype=torch.bool, device=n_res0.device)
     if residual_df is not None and floor_rtol is not None:

@@ -1,10 +1,15 @@
 """Matrix-free Jacobian operators backed by PyTorch AD.
 
 Counterpart of ``newtonkrylov_tpu/operator.py``.  The residual is
-linearized once per Newton iteration with :func:`torch.func.linearize`:
-it traces the tangent map into an FX graph and folds everything that
-depends only on the linearization point (``exp(u)`` and the like) into
-constants, so every Krylov matvec replays only the linear part.
+linearized once per Newton iteration.  The Newton drivers trace its J·v
+once a solve (:func:`~newtonkrylov_tpu_torch.exportable.jvp_graph`, eagerly
+and under an export alike) into two FX graphs: the linearization, which
+reads only the state and the parameters (``exp(u)`` and the like) and is
+evaluated at each new point, and the tangent map, which every Krylov
+matvec replays.  An operator built without such a graph, or in a solve
+whose residual cannot be traced with fake tensors, linearizes with
+:func:`torch.func.linearize`, which makes the same split by tracing the
+tangent map at the point and folding the rest into constants.
 
 The adjoint ``Jᵀw`` is the :func:`torch.func.vjp` of ``F(·, p)`` at ``u``
 (the JAX package transposes its stored JVP), built on first use and kept
@@ -14,8 +19,8 @@ striped (colored) vectors, one replayed matvec each (a loop, as
 
 A hand-written kernel reached from a residual must be a
 ``torch.library.custom_op`` with a fake registration (as in
-:mod:`newtonkrylov_tpu_torch.kernels.stencil2d`): ``linearize`` traces with
-``make_fx``, where a raw foreign call would see tracing tensors.
+:mod:`newtonkrylov_tpu_torch.kernels.stencil2d`): both linearizations
+trace with ``make_fx``, where a raw foreign call would see tracing tensors.
 """
 
 from __future__ import annotations
@@ -58,12 +63,16 @@ class JacobianOperator(LinearOperator):
     """Lazy J = ∂F/∂u at a linearization point.
 
     ``F(u, p) -> res`` is a pure residual; ``p`` is held constant.
-    ``res`` is F(u, p), a by-product of the linearization.  Under
-    :func:`torch.export.export` the operator applies ``jvp_graph``
+    ``res`` is F(u, p).  Given ``jvp_graph``
     (:func:`~newtonkrylov_tpu_torch.exportable.jvp_graph` of ``F`` at
-    states and parameters shaped like ``u`` and ``p``) instead: its
-    linearization is evaluated at ``u`` here, and each J·v replays only the
-    tangent map, as the linearize graph does; ``Jᵀw`` replays ``vjp_graph``
+    states and parameters shaped like ``u`` and ``p``, which the Newton
+    drivers trace once a solve), the operator evaluates the graph's
+    linearization at ``u`` here and each J·v replays only the tangent map,
+    as the linearize graph does; ``res`` is then evaluated on first use.
+    Without one it linearizes with :func:`torch.func.linearize`, which
+    returns ``res`` with the linearization, or, under
+    :func:`torch.export.export`, traces the graph itself.  Under an export
+    ``Jᵀw`` replays ``vjp_graph``
     (:func:`~newtonkrylov_tpu_torch.exportable.vjp_graph`) the same way.
     """
 
@@ -72,23 +81,38 @@ class JacobianOperator(LinearOperator):
         self.F = F
         self.u = u
         self.p = p
+        self._res = None
         self._vjp = None  # built on first use; most solves never need it
         self._vjp_graph = vjp_graph
         if exporting():
             # an export replays the linearization as a traced J·v graph
             # (built here unless a driver built it ahead of its loop)
             graph = jvp_graph or _jvp_graph(F, u, p)
-            self.res = F(u, p)
+            self._res = F(u, p)
             self._jvp = graph.linearize(u, p)
             return
-        with span("linearize"), warnings.catch_warnings():
+        if jvp_graph is not None:
+            with span("linearize"):
+                self._jvp = jvp_graph.linearize(u, p)
+            return
+        with span("linearize"), span("linearize.trace"), \
+                warnings.catch_warnings():
             # linearize's constant folding builds its folded module before
             # attaching the constants it references and warns about it;
             # the module it returns is complete
             warnings.filterwarnings(
                 "ignore", message="Attempted to insert a get_attr Node",
                 category=UserWarning)
-            self.res, self._jvp = torch.func.linearize(lambda uu: F(uu, p), u)
+            self._res, self._jvp = torch.func.linearize(
+                lambda uu: F(uu, p), u)
+
+    @property
+    def res(self):
+        """F(u, p): the linearization's primal, or evaluated on first use
+        where a traced graph linearized."""
+        if self._res is None:
+            self._res = self.F(self.u, self.p)
+        return self._res
 
     def mv(self, v):
         """J @ v by replaying the stored linearization."""

@@ -18,23 +18,27 @@ Counterpart of ``newtonkrylov_tpu/utils/profiling.py``:
 
 **Spans.**  The program opens a span where a layer's work happens:
 
-=================  ==========================================================
-``serve``          ``utils.serving.Loaded.call``
-``solve``          ``newton_krylov_jit`` / ``newton_krylov``, call to return
-``setup``          the initial residual, tolerance and floor estimate
-``precond.build``  a preconditioner factory's call (once, or every outer)
-``outer``          each Newton (or Ψtc) iteration
-``read``           each loop condition read back to the host (``while_loop``)
-``linearize``      ``JacobianOperator``'s ``torch.func.linearize``
-``krylov``         the inner solve of an outer
-``cg.step``        each CG iteration
-``matvec``         each J·v of the inner solve
-``precond``        each M⁻¹ (or N⁻¹) apply of the inner solve
-``accept``         the outer's acceptance residual and its norm
-``gc``             each collection of Python's garbage collector (in
-                   memory only, not in a trace: a collection can run
-                   inside a tracer)
-=================  ==========================================================
+=====================  ======================================================
+``serve``              ``utils.serving.Loaded.call``
+``solve``              ``newton_krylov_jit`` / ``newton_krylov``, call to return
+``setup``              the initial residual, tolerance and floor estimate
+``precond.build``      a preconditioner factory's call (once, or every outer)
+``outer``              each Newton (or Ψtc) iteration
+``read``               each loop condition read back to the host (``while_loop``)
+``linearize``          ``JacobianOperator``'s linearization: the traced J·v
+                       graph evaluated at the point, or ``torch.func.linearize``
+``linearize.trace``    a trace of the residual's J·v: once a solve in the
+                       set-up (``exportable.jvp_graph``), or inside each
+                       ``linearize`` that runs ``torch.func.linearize``
+``krylov``             the inner solve of an outer
+``cg.step``            each CG iteration
+``matvec``             each J·v of the inner solve
+``precond``            each M⁻¹ (or N⁻¹) apply of the inner solve
+``accept``             the outer's acceptance residual and its norm
+``gc``                 each collection of Python's garbage collector (in
+                       memory only, not in a trace: a collection can run
+                       inside a tracer)
+=====================  ======================================================
 
 Spans record while a ``torch.profiler`` profile is active on the thread
 (so a :func:`trace` shows the program's layers by name) and inside

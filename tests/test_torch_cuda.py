@@ -848,9 +848,9 @@ def test_exported_flagship_on_card(cuda_device, tmp_path):
 
 def test_exported_aligned_launches_kernels(cuda_device, tmp_path):
     """The aligned solve at 128² exported and loaded: the loaded program
-    launches K1 once a CG matvec and K2 once a residual, the live solve's
-    launches less those of its linearizations' tracing (three residuals and
-    one J·v each), with the live counts and state bit for bit."""
+    launches K1 once a CG matvec and K2 once a residual, as the live solve
+    does (both linearize from a J·v graph traced once with fake tensors,
+    which launches neither), with the live counts and state bit for bit."""
     from newtonkrylov_tpu_torch.utils import serving
 
     n = 128
@@ -872,9 +872,9 @@ def test_exported_aligned_launches_kernels(cuda_device, tmp_path):
     u, outer, inner = loaded.call(u0)
     outer_l, inner_l = live[1], live[2]
     assert tk.LAUNCHES["stencil_jvp"] == inner_l + outer_l == (
-        want["stencil_jvp"] - outer_l)
+        want["stencil_jvp"])
     assert tk.LAUNCHES["bratu_residual"] == outer_l + 1 == (
-        want["bratu_residual"] - 3 * outer_l)
+        want["bratu_residual"])
     assert (int(outer), int(inner)) == (live[1], live[2])
     assert torch.equal(u, live[0])
 

@@ -60,6 +60,7 @@ def test_off_records_nothing_and_hands_back_one_null_context():
 def test_recorded_solve_spans(driver):
     """One ``solve``; ``outer``, ``krylov`` and ``accept`` once an outer;
     ``linearize`` once an outer and once for the static preconditioner;
+    ``linearize.trace`` once, in the set-up;
     ``read`` (outers + 1) + (inners + outers) times (the set-up reads
     nothing); ``cg.step`` once an inner; ``matvec`` and ``precond`` once an
     inner and once a CG start; every child inside its parent, and one solve
@@ -80,7 +81,7 @@ def test_recorded_solve_spans(driver):
     count = Counter(r.name for r in mine)
     assert count == {"solve": 1, "setup": 1, "precond.build": 1,
                      "outer": outers, "krylov": outers, "accept": outers,
-                     "linearize": outers + 1,
+                     "linearize": outers + 1, "linearize.trace": 1,
                      "read": (outers + 1) + (inners + outers),
                      "cg.step": inners, "matvec": inners + outers,
                      "precond": inners + outers}
@@ -97,6 +98,7 @@ def test_recorded_solve_spans(driver):
     assert parents["outer"] == {"solve"}
     assert parents["krylov"] == parents["accept"] == {"outer"}
     assert parents["linearize"] == {"outer", "precond.build"}
+    assert parents["linearize.trace"] == {"setup"}
     assert parents["cg.step"] == {"krylov"}
     assert parents["matvec"] <= {"krylov", "cg.step"}
 
