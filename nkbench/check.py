@@ -42,7 +42,10 @@ def reference(name: str):
     return importlib.import_module(f"nkbench.reference.{name}")
 
 
-def judge(run, keep: Dict[int, torch.Tensor], log) -> Verdict:
+def judge(run, keep: Dict[int, torch.Tensor], log, u0=None) -> Verdict:
+    """``u0`` makes a fresh whole starting state where the run's own
+    (``run.u0``) is a rank's block of it."""
+    fresh = u0 or run.u0
     ref = reference(run.config["reference"])
     limits = run.mix["check"]["limits"]
     recipe, problem = run.config["recipe"], run.config["problem"]
@@ -52,7 +55,7 @@ def judge(run, keep: Dict[int, torch.Tensor], log) -> Verdict:
     for i in sorted(keep):
         rec = by_index[i]
         u = keep[i].to(device=run.device, dtype=torch.float64)
-        u0 = run.u0()
+        u0 = fresh()
         j = ref.judge(u, u0, problem, recipe)
         ratio = j["res_ratio"] if math.isfinite(j["res_ratio"]) else BIG
         if ratio > limits["res_ratio"]:

@@ -18,8 +18,16 @@ A cell of ``BENCHMARK.json`` names a configuration and a traffic mix
 5. prints the numbers compared beside their limits as the last lines of
    standard error, and one JSON line last on standard output.
 
+A cell whose ``chips`` is above 1 runs over that many ranks, one process
+a card (:mod:`nkbench.ranks`): rank 0 starts the others, every rank builds
+its block of the configuration's sharded solve
+(:class:`nkbench.sharded.ShardedSystem`), and every request's wall runs on
+rank 0's clock until every card has finished.  Rank 0 alone reads the
+metrics, judges the answers (their blocks gathered from the ranks) and
+prints.
+
 Nothing is printed as a result without a card, or when a module of JAX or
-of the JAX package was loaded.
+of the JAX package was loaded in any rank.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from . import check, spec, traffic
-from .system import System
+from . import check, ranks, spec, traffic
+from .system import System, system_class
 from .trace import Recorder, Spans, now_ns
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "newtonkrylov_tpu")
@@ -70,7 +78,8 @@ class Run:
         self.system, self.log = system, log
         self.n, self.device = system.n, system.device
         self.guess = traffic.initial_guess(config["problem"], self.n,
-                                           self.device)
+                                           self.device, system.block)
+        self.world = 1  # the ranks the cell runs over
         self.records: List[Record] = []
         self.timeline = None
         self.counters: Dict[str, int] = {}
@@ -78,7 +87,8 @@ class Run:
         self.window_ns = (0, 0)
 
     def u0(self, dtype=torch.float64):
-        """A fresh copy of the starting state every request is sent."""
+        """A fresh copy of the starting state every request is sent (over
+        ranks: this rank's block of it)."""
         return self.guess.to(dtype, copy=True)
 
     @property
@@ -133,7 +143,7 @@ def _power_limit() -> Optional[str]:
 
 
 def _window(run: Run, seed: int, seconds: float, spans: Spans,
-            keep: Dict[int, torch.Tensor]) -> None:
+            keep: Dict[int, torch.Tensor], group: ranks.Group) -> None:
     """Drive the mix for ``seconds``; fills ``run.records`` and ``keep``
     (the answers to check, on the host).  What is alive before the window
     (the libraries, the program's built state) is moved out of the garbage
@@ -143,7 +153,10 @@ def _window(run: Run, seed: int, seconds: float, spans: Spans,
     gc.collect()
     gc.freeze()
     try:
-        _drive(run, seed, seconds, spans, keep)
+        if group.world > 1:
+            _drive_ranks(run, seconds, spans, keep, group)
+        else:
+            _drive(run, seed, seconds, spans, keep)
     finally:
         gc.unfreeze()
 
@@ -195,6 +208,47 @@ def _drive(run: Run, seed: int, seconds: float, spans: Spans,
     run.window_ns = (w0_ns, now_ns())
 
 
+def _drive_ranks(run: Run, seconds: float, spans: Spans,
+                 keep: Dict[int, torch.Tensor], group: ranks.Group) -> None:
+    """A closed loop over ranks.  Before each request, outside its wall,
+    every rank puts its block of u₀ on its card, and the ranks agree on
+    rank 0's decision whether it starts (which they reach together).  A
+    request's wall runs on rank 0's clock from the call until every rank
+    has synchronized its card: the slowest card sets it.  Each rank keeps
+    its block of every answer on the host."""
+    if run.mix["loop"] != "closed":
+        raise NotImplementedError("a cell over ranks runs a closed loop")
+    dev, system = run.device, run.system
+    dtype = system.state_dtype()
+    _sync(dev)
+    group.barrier()
+    w0_ns = now_ns()
+    t0 = time.perf_counter()
+    i = 0
+    while True:
+        b_ns = now_ns()
+        u0 = run.u0(dtype)
+        _sync(dev)
+        if not group.decide(time.perf_counter() - t0 < seconds):
+            break
+        a_ns = now_ns()
+        spans.add("between requests", b_ns, a_ns)
+        t = time.perf_counter()
+        ans = system(u0)
+        _sync(dev)
+        group.barrier()
+        done = time.perf_counter()
+        spans.add("request", a_ns, now_ns())
+        run.records.append(Record(i, done - t, done - t, 0.0, ans.outer,
+                                  ans.inner, ans.solved))
+        keep[i] = ans.u.to("cpu")
+        del ans, u0
+        i += 1
+    _sync(dev)
+    run.window_s = time.perf_counter() - t0
+    run.window_ns = (w0_ns, now_ns())
+
+
 def _metrics(bench: dict, section: str, run: Run, log) -> Dict[str, dict]:
     out = {}
     for entry in spec.metrics_for(bench, section, run.cell["name"]):
@@ -210,30 +264,48 @@ def _metrics(bench: dict, section: str, run: Run, log) -> Dict[str, dict]:
 
 def run(workload: str, seed: int, seconds: float, trace: bool,
         device: str = "cuda", t_start: Optional[float] = None,
-        side: Optional[int] = None, system_factory=System,
-        log: Callable[[str], None] = None) -> dict:
+        side: Optional[int] = None, system_factory=None,
+        log: Callable[[str], None] = None) -> Optional[dict]:
     """One run of cell ``workload`` (see the module); returns the result
-    object that :func:`main` prints.  ``device``, ``side`` and
-    ``system_factory`` exist for the harness's own tests on the CPU."""
+    object that :func:`main` prints (over ranks: on rank 0, None on the
+    others, each called in its rank of a process group of the cell's
+    ``chips``).  ``device``, ``side`` and ``system_factory`` (by default
+    the one the configuration's recipe asks for) exist for the harness's
+    own tests on the CPU."""
     t_start = time.perf_counter() if t_start is None else t_start
     log = log or (lambda m: print(m, file=sys.stderr, flush=True))
     dev = torch.device(device)
     bench = spec.benchmark()
     cell = spec.workload(bench, workload)
-    _device_check(dev, int(cell["chips"]))
+    chips = int(cell["chips"])
+    _device_check(dev, chips)
+    if chips > 1 and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    group = ranks.Group(dev, chips)
+    if not group.lead:
+        say = log
+
+        def log(m):
+            say(f"[rank {group.rank}] {m}")
     config = spec.load_json("config", cell["config"])
     mix = spec.load_json("traffic", cell["traffic"])
     n = int(side or mix["side"])
+    system_factory = system_factory or system_class(config)
     system = system_factory(config, n, dev, mode=mix["mode"])
     r = Run(cell, config, mix, system, log)
+    r.world = group.world
 
-    # set-up: the solve (served: exported, saved, loaded) and warm requests
+    # set-up: the solve (served: exported, saved, loaded) and warm requests,
+    # each cut to the mix's "warm_outers" where it states them
     u_warm = r.u0(system.state_dtype())
     system.prepare(u_warm)
+    warm = {"max_niter": mix["warm_outers"]} if "warm_outers" in mix else {}
     for _ in range(int(mix["warm_requests"])):
-        system(u_warm)
+        system(u_warm, **warm)
     _sync(dev)
     del u_warm
+    if group.world > 1:
+        group.barrier()
     setup_s = time.perf_counter() - t_start
     log(f"[nkbench] {workload}: set-up {setup_s:.3f} s (side {n}, "
         f"{mix['mode']} solve)")
@@ -241,11 +313,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     before = _read_counters()
     spans = Spans()
     keep: Dict[int, torch.Tensor] = {}
-    with Recorder(trace and r.cuda) as rec:
-        _window(r, seed, seconds, spans, keep)
+    with Recorder(trace and r.cuda and group.lead) as rec:
+        _window(r, seed, seconds, spans, keep, group)
     after = _read_counters()
     r.counters = {k: after[k] - before[k] for k in after}
     peak = torch.cuda.max_memory_allocated(dev) if r.cuda else 0
+    if group.world > 1:
+        peak = int(group.max(peak))  # the fullest card's
+        if not group.lead:
+            return _judge(r, keep, group, log)
     log(f"[nkbench] window {r.window_s:.3f} s: {len(r.records)} requests; "
         f"counters {({k: v for k, v in r.counters.items() if v})}")
     if r.records:
@@ -282,18 +358,36 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     if trace and r.timeline is not None:
         result["breakdown"] = r.timeline.breakdown()
 
-    # the program's state goes before the reference runs
-    system.close()
     del system
-    r.system = None
-    gc.collect()
-    if r.cuda:
-        torch.cuda.empty_cache()
-    verdict = check.judge(r, keep, log)
+    verdict = _judge(r, keep, group, log)
     result["correct"] = verdict.correct
     result["failed"] = verdict.failed
     result["checks"] = verdict.checks
     return result
+
+
+def _judge(r: Run, keep: Dict[int, torch.Tensor], group: ranks.Group,
+          log) -> Optional[check.Verdict]:
+    """Free the program's state, then judge the kept answers (over ranks:
+    gathered whole on rank 0, which alone judges, from the whole u₀)."""
+    origin = r.system.origin if group.world > 1 else None
+    r.system.close()
+    r.system = None
+    gc.collect()
+    if r.cuda:
+        torch.cuda.empty_cache()
+    if group.world == 1:
+        return check.judge(r, keep, log)
+    whole = {}
+    for i in sorted(keep):
+        u = group.gather(keep.pop(i), origin, r.n)
+        if group.lead:
+            whole[i] = u
+    if not group.lead:
+        return None
+    problem = r.config["problem"]
+    return check.judge(r, whole, log, u0=lambda: traffic.initial_guess(
+        problem, r.n, r.device))
 
 
 def main(argv=None, t_start: Optional[float] = None) -> int:
@@ -302,17 +396,33 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # for the harness's own tests on the CPU
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--side", type=int, default=None, help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else list(argv)
     a = ap.parse_args(argv)
+    chips = int(spec.workload(spec.benchmark(), a.workload)["chips"])
+    if chips > 1:
+        return _main_ranks(a, argv, chips, t_start)
     try:
         result = run(a.workload, a.seed, a.seconds, bool(a.trace),
-                     t_start=t_start)
+                     device=a.device, t_start=t_start, side=a.side)
     except NoDevice as e:
         print(f"[nkbench] {e}; no result", file=sys.stderr)
         return 2
+    return _report(result)
+
+
+def _forbidden() -> bool:
     found = forbidden_modules()
     if found:
         print(f"[nkbench] modules of JAX or of the JAX package were loaded: "
               f"{found}; no result", file=sys.stderr)
+    return bool(found)
+
+
+def _report(result: dict) -> int:
+    if _forbidden():
         return 3
     for name, c in result["checks"].items():
         print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",
@@ -321,3 +431,22 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
     print(json.dumps(result, allow_nan=False), flush=True)
     return 0
 
+
+def _main_ranks(a, argv: List[str], chips: int,
+                t_start: Optional[float]) -> int:
+    """This process's rank of a cell over ``chips`` ranks (see
+    :mod:`nkbench.ranks`): rank 0, unless started as a rank, starts the
+    others; it prints the result once every rank has ended with code 0."""
+    dev = torch.device(a.device)
+    try:
+        _device_check(dev, chips)
+    except NoDevice as e:
+        print(f"[nkbench] {e}; no result", file=sys.stderr)
+        return 2
+    result, ended = ranks.spmd(
+        str(spec.HERE / "run.py"), argv, chips, dev,
+        lambda: run(a.workload, a.seed, a.seconds, bool(a.trace),
+                    device=a.device, t_start=t_start, side=a.side))
+    if result is None:  # not rank 0
+        return 3 if _forbidden() else 0
+    return _report(result) if ended else 1

@@ -24,6 +24,10 @@ if __name__ == "__main__":
     # one process with few threads: the program's host work is one Python
     # thread, and idle OpenMP workers only contend with it for the cores
     os.environ["OMP_NUM_THREADS"] = "1"
+    # a traced run profiles the window, then a solve: the profiler keeps
+    # CUPTI between the two sessions, as torn down and set up again it
+    # loses the records of the second session's first kernels
+    os.environ["TEARDOWN_CUPTI"] = "0"
     from nkbench.harness import main
 
     sys.exit(main(t_start=T_START))

@@ -12,6 +12,7 @@ timestamps.  Two sources feed the readers:
   them;
 * **one traced solve after the window** (:func:`replay`): one live solve
   of the cell's system from ``run.u0()`` under a CPU and CUDA profile,
+  made again (up to :data:`ATTEMPTS` solves) while it gives no result,
   cached per run.  Each device event is put down to the span its launch
   fell in, by the runtime launch's correlation id (or, for a copy the
   runtime did not report, the launching operator's); the card's idle time
@@ -42,6 +43,11 @@ RUNTIME = re.compile(r"^cu(da)?[A-Z]")        # CUDA runtime / driver calls
 LAUNCH = re.compile(r"^cu(da)?Launch\w*Kernel")
 COPY = ("Memcpy", "Memset")
 NO_LAYER = ("solve", "outer")  # innermost spans that name no layer
+# traced solves a run makes before the replay's readers give no result:
+# the profiler now and then loses the records of a session's first kernels
+# (ROADMAP item 28(a); ``run.py`` keeps CUPTI between sessions, which
+# cures most of it), and a short list is refused, not used
+ATTEMPTS = 5
 
 
 # -- the program's span API ---------------------------------------------------
@@ -328,13 +334,14 @@ def idle_share_pct(rep: Replay, name: str) -> Optional[float]:
 
 
 def kineto(events) -> Tuple[List[Device], Dict[int, int], Dict[int, int],
-                            int, int, list]:
+                            int, int, list, list]:
     """The raw profiler events as (device events, launch ns by correlation
     id, operator start ns by correlation id, kernels, kernel launches,
-    operator intervals ``(start, end, name)``)."""
+    operator intervals ``(start, end, name)``, kernel launches with no
+    device event of their correlation id by :func:`orphans`)."""
     from torch.autograd import DeviceType
 
-    devices, launch_ns, op_ns, ops = [], {}, {}, []
+    devices, launch_ns, op_ns, ops, calls = [], {}, {}, [], []
     kernels = launches = 0
     for e in events:
         name = e.name()
@@ -347,11 +354,30 @@ def kineto(events) -> Tuple[List[Device], Dict[int, int], Dict[int, int],
             kernels += not name.startswith(COPY)
         elif RUNTIME.match(name):
             launch_ns[e.correlation_id()] = e.start_ns()
-            launches += bool(LAUNCH.match(name))
+            if LAUNCH.match(name):
+                launches += 1
+                calls.append((e.correlation_id(), name, e.start_ns()))
         elif not e.is_user_annotation():
             op_ns[e.correlation_id()] = e.start_ns()
             ops.append((e.start_ns(), e.end_ns(), name))
-    return devices, launch_ns, op_ns, kernels, launches, ops
+    return (devices, launch_ns, op_ns, kernels, launches, ops,
+            orphans(calls, {d.corr for d in devices}, ops))
+
+
+def orphans(calls: Sequence[Tuple[int, str, int]], seen: set,
+            ops: Sequence[Tuple[int, int, str]], most: int = 64
+            ) -> List[Tuple[str, int]]:
+    """Kernel launches ``(correlation id, name, ns)`` whose correlation id
+    no device event carries, as ``("<launch> in <operator>", ns)`` (the
+    innermost operator open at the launch; the first ``most`` looked up)."""
+    out = []
+    for k, (corr, name, t) in enumerate(c for c in calls if c[0] not in seen):
+        op = "?"
+        if k < most:
+            open_ops = [o for o in ops if o[0] <= t <= o[1]]
+            op = max(open_ops)[2] if open_ops else "no operator"
+        out.append((f"{name} in {op}", t))
+    return out
 
 
 def host_work(rep: Replay, ops: Sequence[Tuple[int, int, str]],
@@ -398,19 +424,28 @@ def _table(log, rep: Replay, ops: list) -> None:
             f"{n} {ns / 1e6:.3f}" for n, ns in work))
 
 
-def _replay(run) -> Optional[Replay]:
+def _replayable(run) -> bool:
+    """Whether :func:`replay` solves (a card, the program's spans, one
+    rank, a request in the window); logs why not."""
+    if not run.cuda:
+        run.log("[spans] no card: no replayed solve")
+        return False
+    if program_spans() is None:
+        run.log("[spans] the program records no span: no replayed solve")
+        return False
+    if getattr(run, "world", 1) > 1:
+        run.log("[spans] a run over ranks makes no replayed solve")
+        return False
+    return bool(run.records)
+
+
+def _traced_solve(run) -> Optional[Replay]:
+    """One traced solve (see the module); None, logged, where it gives no
+    result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not run.cuda:
-        run.log("[spans] no card: no replayed solve")
-        return None
     prof = program_spans()
-    if prof is None:
-        run.log("[spans] the program records no span: no replayed solve")
-        return None
-    if not run.records:
-        return None
     u0 = run.u0(run.system.state_dtype())
     torch.cuda.synchronize(run.device)
     mark = time.time_ns()
@@ -433,14 +468,34 @@ def _replay(run) -> Optional[Replay]:
                        run.log)
 
 
+def _orphan_log(log, lone, devices, records) -> None:
+    """Where the launches with no device event fell: the innermost span,
+    and ms after the first device event and after the solve's start."""
+    first = min((d.start_ns for d in devices), default=0)
+    solves = [r for r in records if r.name == "solve" and r.solve == r.id]
+    inner = Innermost(Tree(records)) if records else None
+    s0 = solves[0].start_ns if solves else first
+    ranked = sorted({(d.start_ns, d.corr) for d in devices})
+    log(f"[spans] {len(lone)} kernel launches with no device event:")
+    for label, t in lone[:16]:
+        r = inner.at(t) if inner is not None else None
+        before = bisect.bisect_left(ranked, (t, -1))
+        log(f"[spans]   {label}: span {r.name if r else 'none'}, "
+            f"{(t - s0) / 1e6:.3f} ms into the solve, "
+            f"{(t - first) / 1e6:.3f} ms after the first device event, "
+            f"{before} device events start before it")
+
+
 def from_events(events, records: Sequence, log) -> Optional[Replay]:
     """The :class:`Replay` of one traced solve from the profiler's raw
     events and the solve's span records; None, logged, where the profiler
     returned fewer kernels than launches or the records hold no single
     solve."""
-    devices, launch_ns, op_ns, kernels, launches, ops = kineto(events)
+    devices, launch_ns, op_ns, kernels, launches, ops, lone = kineto(events)
     log(f"[spans] {len(devices)} device events, {kernels} kernels, "
         f"{launches} kernel launches")
+    if lone:
+        _orphan_log(log, lone, devices, records)
     if kernels < launches:
         log("[spans] the profiler returned fewer kernels than launches: no "
             "result")
@@ -454,10 +509,14 @@ def from_events(events, records: Sequence, log) -> Optional[Replay]:
 
 
 def replay(run) -> Optional[Replay]:
-    """One traced solve after the window, made once a run (see the
+    """The traced solve after the window, made once a run (see the
     module)."""
     if not hasattr(run, "_span_replay"):
-        run._span_replay = _replay(run)
+        run._span_replay = None
+        for _ in range(ATTEMPTS if _replayable(run) else 0):
+            run._span_replay = _traced_solve(run)
+            if run._span_replay is not None:
+                break
     return run._span_replay
 
 

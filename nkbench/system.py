@@ -62,13 +62,20 @@ class System:
             raise ValueError(f"unknown acceptance {self.acceptance!r}")
         if mode not in ("live", "served"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.F = resolve(recipe["residual"])
-        self.F_df = resolve(recipe["residual_df"])
+        self.F, self.F_df = self.residuals()
         self.p = resolve(recipe["params"])(n, lam=float(problem["lam"]))
         self.driver = resolve(recipe["driver"])
         self.factory = self.make_factory()
         self._loaded = None
         self._tmp = None
+
+    # the state this system takes and returns: the whole grid
+    block = None
+
+    def residuals(self):
+        """The residual and its df32 acceptance residual."""
+        return (resolve(self.recipe["residual"]),
+                resolve(self.recipe["residual_df"]))
 
     # -- the pieces a per-layer reader replays ------------------------------
     def make_factory(self) -> Optional[Callable]:
@@ -80,10 +87,12 @@ class System:
     def state_dtype(self):
         return torch.float64 if self.acceptance == "df32" else torch.float32
 
-    def kwargs(self) -> dict:
+    def kwargs(self, max_niter=None) -> dict:
+        """The driver's options; ``max_niter`` in place of the recipe's."""
         r = self.recipe
         kw = dict(algo=r["algo"], tol_rel=float(r["tol_rel"]),
-                  tol_abs=float(r["tol_abs"]), max_niter=int(r["max_niter"]),
+                  tol_abs=float(r["tol_abs"]),
+                  max_niter=int(max_niter or r["max_niter"]),
                   krylov_dtype=DTYPES[r["krylov_dtype"]])
         if self.acceptance == "df32":
             kw.update(residual_df=self.F_df, floor_rtol=r.get("floor_rtol"))
@@ -93,8 +102,8 @@ class System:
         return kw
 
     # -- one request ----------------------------------------------------------
-    def _solve(self, u0):
-        u, info = self.driver(self.F, u0, self.p, **self.kwargs())
+    def _solve(self, u0, max_niter=None):
+        u, info = self.driver(self.F, u0, self.p, **self.kwargs(max_niter))
         return (u, info.stats.outer_iterations, info.stats.inner_iterations,
                 info.solved)
 
@@ -111,11 +120,15 @@ class System:
         del ep
         self._loaded = serving.load_exported(path)
 
-    def __call__(self, u0) -> Answer:
+    def __call__(self, u0, max_niter=None) -> Answer:
+        """One request; ``max_niter`` cuts a live solve to that many
+        outers (a warm request of the set-up)."""
         if self.mode == "served":
+            if max_niter is not None:
+                raise ValueError("a served solve runs as it was exported")
             u, outer, inner, solved = self._loaded.call(u0)
         else:
-            u, outer, inner, solved = self._solve(u0)
+            u, outer, inner, solved = self._solve(u0, max_niter)
         return Answer(u, int(outer), int(inner), bool(solved))
 
     def close(self) -> None:
@@ -124,3 +137,14 @@ class System:
         if self._tmp is not None:
             self._tmp.cleanup()
             self._tmp = None
+
+
+def system_class(config: dict):
+    """The system a configuration's recipe asks for: :class:`System`, or
+    over a mesh of ranks (``"mesh"`` in the recipe)
+    :class:`nkbench.sharded.ShardedSystem`."""
+    if "mesh" in config["recipe"]:
+        from .sharded import ShardedSystem
+
+        return ShardedSystem
+    return System

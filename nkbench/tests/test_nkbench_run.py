@@ -103,7 +103,8 @@ import json, sys
 sys.path.insert(0, {root!r})
 from nkbench import harness, spec
 out = {{}}
-for cell in [w["name"] for w in spec.benchmark()["workloads"]]:
+for cell in [w["name"] for w in spec.benchmark()["workloads"]
+             if w["chips"] == 1]:
     for trace in (False, True):
         r = harness.run(cell, 5, 0.3, trace, device="cpu", side=16,
                         log=lambda m: None)

@@ -143,6 +143,36 @@ def test_events_reduce_to_a_replay_and_refuse_a_short_list():
     assert spans.from_events(_events(), [], log.append) is None
 
 
+def test_a_launch_with_no_device_event_is_named_where_it_fell():
+    log = []
+    spans.from_events(_events(drop_kernel=True), _solve(0, 1), log.append)
+    said = [line for line in log if "cuLaunchKernel in aten::add" in line]
+    assert len(said) == 1 and "span krylov" in said[0]
+    assert "2 device events start before it" in said[0]
+
+
+@pytest.mark.parametrize("short", [0, 2, 3])
+def test_a_short_replay_is_traced_again(monkeypatch, short):
+    """The replay refuses a short list and traces the solve again, up to
+    ATTEMPTS solves; a run over ranks makes none."""
+    calls = []
+
+    def traced(run):
+        calls.append(run)
+        return None if len(calls) <= short else "replay"
+
+    monkeypatch.setattr(spans, "_traced_solve", traced)
+    run = Run(cuda=True)
+    run.records = [object()]
+    got = spans.replay(run)
+    assert len(calls) == min(short + 1, spans.ATTEMPTS)
+    assert got == (None if short >= spans.ATTEMPTS else "replay")
+    assert spans.replay(run) is got and len(calls) <= spans.ATTEMPTS
+    ranked = Run(cuda=True)
+    ranked.records, ranked.world = [object()], 4
+    assert spans.replay(ranked) is None and "over ranks" in ranked.lines[-1]
+
+
 def test_host_work_over_idle_time_in_no_layer():
     recs = _solve(0, 1)
     devices = [spans.Device("k", 0, 15, 1, 0)]

@@ -51,7 +51,7 @@ def test_each_cell_draws_the_same_u0_from_the_same_seed(cell):
     config = spec.load_json("config", w["config"])
 
     class Stub:
-        n, device = 16, torch.device("cpu")
+        n, device, block = 16, torch.device("cpu"), None
 
     a = Run(w, config, mix, Stub(), print)
     b = Run(w, config, mix, Stub(), print)
@@ -60,6 +60,15 @@ def test_each_cell_draws_the_same_u0_from_the_same_seed(cell):
     first.add_(1.0)  # every request is sent a fresh copy
     assert torch.equal(a.u0(), b.u0())
     assert a.u0(torch.float32).dtype == torch.float32
+
+
+@pytest.mark.parametrize("block", [(slice(0, 8), slice(8, 16)),
+                                   (slice(8, 16), slice(0, 8))])
+def test_a_rank_forms_its_block_of_the_starting_state(block):
+    problem = spec.load_json("config", "sfi-sharded")["problem"]
+    whole = traffic.initial_guess(problem, 16, "cpu")
+    assert torch.equal(traffic.initial_guess(problem, 16, "cpu", block),
+                       whole[block])
 
 
 def test_open_loop_schedule_and_sample():

@@ -48,10 +48,11 @@ def checked(mix: dict, seed: int, count: int) -> List[int]:
                                                          replace=False))
 
 
-def initial_guess(problem: dict, n: int, device):
+def initial_guess(problem: dict, n: int, device, block=None):
     """The starting state the problem's source states, on the n × n
     interior of the unit square (spacing h = 1/(n+1)), in float64 on
-    ``device``.
+    ``device``; with ``block`` (a pair of slices of the rows and columns)
+    only that block of it, as a rank of a sharded solve forms its own.
 
     ``"ex5"``: PETSc SNES ex5's ``FormInitialGuess`` and MINPACK-2's
     ``dsfifg`` (task ``'XS'``), ``u₀ = λ/(λ+1)·sqrt(d)`` with ``d`` the
@@ -65,5 +66,6 @@ def initial_guess(problem: dict, n: int, device):
     lam = float(problem["lam"])
     i = torch.arange(1, n + 1, dtype=torch.float64, device=device)
     d = torch.minimum(i, n + 1 - i) / (n + 1)
-    return (lam / (lam + 1.0)) * torch.sqrt(torch.minimum(d[:, None],
-                                                          d[None, :]))
+    rows, cols = (d, d) if block is None else (d[block[0]], d[block[1]])
+    return (lam / (lam + 1.0)) * torch.sqrt(torch.minimum(rows[:, None],
+                                                          cols[None, :]))
