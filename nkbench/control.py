@@ -124,21 +124,20 @@ def readings(workload: str, seeds: Iterable[int], device="cuda",
     mix = spec.load_json("traffic", cell["traffic"])
     n = int(side or mix["side"])
     ref = check.reference(config["reference"])
-    problem = config["problem"]
     paths = ["f32"] + (["df32"] if program else [])
     out = []
     for acceptance in paths:
         system = system_class(config)(config, n, dev, mode="live",
                                       acceptance=acceptance)
-        start = traffic.initial_guess(problem, n, dev, system.block)
+        start = traffic.initial_guess(config, n, dev, system.block)
         for seed in seeds:
             a = system(start.to(system.state_dtype(), copy=True))
             u = a.u
             if group.world > 1:
                 u = group.gather(u, system.origin, n)
             if group.lead:
-                u0 = traffic.initial_guess(problem, n, dev)
-                j = ref.judge(u.to(dev, torch.float64), u0, problem,
+                u0 = traffic.initial_guess(config, n, dev)
+                j = ref.judge(u.to(dev, torch.float64), u0, config["problem"],
                               config["recipe"])
                 row = {"workload": workload, "acceptance": acceptance,
                        "seed": seed, "outer": a.outer,

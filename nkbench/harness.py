@@ -77,8 +77,8 @@ class Run:
         self.cell, self.config, self.mix = cell, config, mix
         self.system, self.log = system, log
         self.n, self.device = system.n, system.device
-        self.guess = traffic.initial_guess(config["problem"], self.n,
-                                           self.device, system.block)
+        self.guess = traffic.initial_guess(config, self.n, self.device,
+                                           system.block)
         self.world = 1  # the ranks the cell runs over
         self.records: List[Record] = []
         self.timeline = None
@@ -385,9 +385,8 @@ def _judge(r: Run, keep: Dict[int, torch.Tensor], group: ranks.Group,
             whole[i] = u
     if not group.lead:
         return None
-    problem = r.config["problem"]
     return check.judge(r, whole, log, u0=lambda: traffic.initial_guess(
-        problem, r.n, r.device))
+        r.config, r.n, r.device))
 
 
 def main(argv=None, t_start: Optional[float] = None) -> int:

@@ -13,7 +13,8 @@ to the configured acceptance: ``‖F(u)‖₂`` against
 ``floor`` is the representation floor of a state carried as a pair of
 float32 words, measured as the configuration states it: the response of
 the Jacobian to a perturbation of ``2⁻⁴⁷·|u|`` with signs alternating
-along one axis (the larger of the two axes), over 4.
+along one axis (the larger of the two axes), over 4.  Every request starts
+from the sources' own initial guess, :func:`initial_guess`.
 """
 
 from __future__ import annotations
@@ -77,6 +78,27 @@ def tolerance(u0: torch.Tensor, lam: float, tol_rel: float, tol_abs: float,
     if floor_rtol is not None:
         tol = max(tol, floor_rtol * floor(u0, lam))
     return tol
+
+
+def initial_guess(problem: dict, n: int, device, block=None) -> torch.Tensor:
+    """The starting state the problem's source states, on the n × n
+    interior (float64, on ``device``); with ``block`` (a pair of slices of
+    the rows and columns) only that block of it, as a rank of a sharded
+    solve forms its own.
+
+    ``"ex5"``: PETSc SNES ex5's ``FormInitialGuess`` and MINPACK-2's
+    ``dsfifg`` (task ``'XS'``), ``u₀ = λ/(λ+1)·sqrt(d)`` with ``d`` the
+    smaller of the point's distances to the boundary along x and along y.
+    """
+    if problem.get("initial_guess") != "ex5":
+        raise ValueError(f"unknown initial guess "
+                         f"{problem.get('initial_guess')!r}")
+    lam = float(problem["lam"])
+    i = torch.arange(1, n + 1, dtype=F64, device=device)
+    d = torch.minimum(i, n + 1 - i) / (n + 1)
+    rows, cols = (d, d) if block is None else (d[block[0]], d[block[1]])
+    return (lam / (lam + 1.0)) * torch.sqrt(torch.minimum(rows[:, None],
+                                                          cols[None, :]))
 
 
 def judge(u: torch.Tensor, u0: torch.Tensor, problem: dict, recipe: dict

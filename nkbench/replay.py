@@ -1,34 +1,17 @@
 """Replays of single phases of a solve, for the per-layer readers.
 
-Copied from the port's ``benchmarks/solve_profile.py`` (phase replays:
-the linearization by the host clock up to a synchronization, device time
-by CUDA events around many calls) and ``benchmarks/xl8192.apply_cost``
-(one preconditioner apply on the Jacobian at u₀), so that later changes to
+Copied from the port's ``benchmarks/solve_profile.py`` (device time by
+CUDA events around many calls) and ``benchmarks/xl8192.apply_cost`` (one
+preconditioner apply on the Jacobian at u₀), so that later changes to
 the program cannot change how its phases are timed.  Each runs after the
 window, at the cell's side, from the requests' starting state.
 """
 
 from __future__ import annotations
 
-import statistics
-import time
 from typing import Callable
 
 import torch
-
-
-def host_ms(fn: Callable, device, reps: int) -> float:
-    """Median host ms of ``fn()`` up to a synchronization, after a warm
-    call."""
-    fn()
-    torch.cuda.synchronize(device)
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(device)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(walls)
 
 
 def device_ms(fn: Callable, device, reps: int) -> float:
@@ -51,14 +34,6 @@ def point(run):
     linearization point, as the solve's first outer takes it."""
     u = run.u0()
     return u, u.to(torch.float32)
-
-
-def linearize_ms(run, reps: int = 5) -> float:
-    from newtonkrylov_tpu_torch.operator import JacobianOperator
-
-    _, u32 = point(run)
-    s = run.system
-    return host_ms(lambda: JacobianOperator(s.F, u32, s.p), run.device, reps)
 
 
 def accept_ms(run, reps: int = 10) -> float:

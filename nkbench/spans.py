@@ -13,12 +13,14 @@ timestamps.  Two sources feed the readers:
 * **one traced solve after the window** (:func:`replay`): one live solve
   of the cell's system from ``run.u0()`` under a CPU and CUDA profile,
   made again (up to :data:`ATTEMPTS` solves) while it gives no result,
-  cached per run.  Each device event is put down to the span its launch
-  fell in, by the runtime launch's correlation id (or, for a copy the
-  runtime did not report, the launching operator's); the card's idle time
-  inside the solve is split at span boundaries and each piece given to the
-  innermost span open over it.  The replay prints a table of idle and busy
-  device ms by innermost span to standard error.
+  cached per run.  Each profile opens with :data:`PRIMER` small kernels,
+  synchronized, and only the events after them are read.  Each device
+  event is put down to the span its launch fell in, by the runtime
+  launch's correlation id (or, for a copy the runtime did not report, the
+  launching operator's); the card's idle time inside the solve is split at
+  span boundaries and each piece given to the innermost span open over
+  it.  The replay prints a table of idle and busy device ms by innermost
+  span to standard error.
 
 A reader gives no result, and logs why, where the program records no span
 (an older checkout), where the store dropped a span of the window, and for
@@ -48,6 +50,12 @@ NO_LAYER = ("solve", "outer")  # innermost spans that name no layer
 # (ROADMAP item 28(a); ``run.py`` keeps CUPTI between sessions, which
 # cures most of it), and a short list is refused, not used
 ATTEMPTS = 5
+# small kernels each replay's profile runs before its solve: where the
+# profiler loses a session's first kernel records, it loses these; events
+# are read from the middle of the gap between them and the solve, which
+# leaves room for the profiler's clock to stray from time.time_ns()
+PRIMER = 16
+PRIMER_GAP_S = 0.004
 
 
 # -- the program's span API ---------------------------------------------------
@@ -448,9 +456,15 @@ def _traced_solve(run) -> Optional[Replay]:
     prof = program_spans()
     u0 = run.u0(run.system.state_dtype())
     torch.cuda.synchronize(run.device)
-    mark = time.time_ns()
     with prof.recording(), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as p:
+        primer = torch.zeros(1, device=run.device)
+        for _ in range(PRIMER):
+            primer.add_(1.0)
+        torch.cuda.synchronize(run.device)
+        primed = time.time_ns()
+        time.sleep(PRIMER_GAP_S)
+        mark = time.time_ns()
         ans = run.system(u0)
         torch.cuda.synchronize(run.device)
     counts = {(r.outer, r.inner) for r in run.records}
@@ -465,7 +479,7 @@ def _traced_solve(run) -> Optional[Replay]:
     run.log(f"[spans] replayed solve {ans.outer} / {ans.inner}")
     return from_events(p.profiler.kineto_results.events(),
                        [r for r in prof.spans() if r.start_ns >= mark],
-                       run.log)
+                       run.log, since=(primed + mark) // 2)
 
 
 def _orphan_log(log, lone, devices, records) -> None:
@@ -486,12 +500,14 @@ def _orphan_log(log, lone, devices, records) -> None:
             f"{before} device events start before it")
 
 
-def from_events(events, records: Sequence, log) -> Optional[Replay]:
+def from_events(events, records: Sequence, log, since: int = 0
+                ) -> Optional[Replay]:
     """The :class:`Replay` of one traced solve from the profiler's raw
-    events and the solve's span records; None, logged, where the profiler
-    returned fewer kernels than launches or the records hold no single
-    solve."""
-    devices, launch_ns, op_ns, kernels, launches, ops, lone = kineto(events)
+    events that start at ``since`` or later and the solve's span records;
+    None, logged, where the profiler returned fewer kernels than launches
+    or the records hold no single solve."""
+    devices, launch_ns, op_ns, kernels, launches, ops, lone = kineto(
+        [e for e in events if e.start_ns() >= since])
     log(f"[spans] {len(devices)} device events, {kernels} kernels, "
         f"{launches} kernel launches")
     if lone:

@@ -4,6 +4,18 @@ The recipe names the program's public entry points as ``"module:attribute"``
 inside the port (``newtonkrylov_tpu_torch``) and nothing else: the
 residual, its float32-pair (df32) acceptance residual, the problem's
 parameters and the preconditioner factory, with the driver's options.
+It states every value the harness hands them, so that nothing here knows
+a problem by name:
+
+* ``"params"`` is called once, in set-up, as ``params(n, **params_kwargs)``,
+  and given the cell's ``device`` and the recipe's ``"params_dtype"``
+  where it takes ``device`` and ``dtype`` (tensors such as a right-hand
+  side are built on the card, in the stated dtype);
+* ``"forcing"``: the driver's default where the recipe has no such key,
+  none where it is ``null``, else ``{"factory": "module:attribute",
+  "kwargs": {...}}`` of the port's ``forcing`` module;
+* ``"krylov_kwargs"``: handed to the driver as they stand, where stated.
+
 :class:`System` turns it into one call per request:
 
 * ``"live"``: ``newton_krylov_jit`` called from Python, as a user's script
@@ -20,6 +32,7 @@ one: the control of the correctness check, never used by a benchmark run.
 from __future__ import annotations
 
 import importlib
+import inspect
 import os
 import tempfile
 from typing import Any, Callable, NamedTuple, Optional
@@ -54,8 +67,7 @@ class System:
     def __init__(self, config: dict, n: int, device, mode: str = "live",
                  acceptance: Optional[str] = None):
         recipe = config["recipe"]
-        problem = config["problem"]
-        self.config, self.recipe, self.problem = config, recipe, problem
+        self.config, self.recipe = config, recipe
         self.n, self.device, self.mode = n, torch.device(device), mode
         self.acceptance = acceptance or recipe["acceptance"]
         if self.acceptance not in ("df32", "f32"):
@@ -63,7 +75,7 @@ class System:
         if mode not in ("live", "served"):
             raise ValueError(f"unknown mode {mode!r}")
         self.F, self.F_df = self.residuals()
-        self.p = resolve(recipe["params"])(n, lam=float(problem["lam"]))
+        self.p = self.make_params()
         self.driver = resolve(recipe["driver"])
         self.factory = self.make_factory()
         self._loaded = None
@@ -76,6 +88,21 @@ class System:
         """The residual and its df32 acceptance residual."""
         return (resolve(self.recipe["residual"]),
                 resolve(self.recipe["residual_df"]))
+
+    def make_params(self):
+        """The problem's parameters at side ``n`` (module docstring)."""
+        r = self.recipe
+        make = resolve(r["params"])
+        kw = dict(r.get("params_kwargs", {}))
+        takes = inspect.signature(make).parameters
+        if "device" in takes:
+            kw["device"] = self.device
+        if "dtype" in takes:
+            if "params_dtype" not in r:
+                raise ValueError(f"{r['params']} takes a dtype: the recipe "
+                                 f"states none (\"params_dtype\")")
+            kw["dtype"] = DTYPES[r["params_dtype"]]
+        return make(self.n, **kw)
 
     # -- the pieces a per-layer reader replays ------------------------------
     def make_factory(self) -> Optional[Callable]:
@@ -94,6 +121,11 @@ class System:
                   tol_abs=float(r["tol_abs"]),
                   max_niter=int(max_niter or r["max_niter"]),
                   krylov_dtype=DTYPES[r["krylov_dtype"]])
+        if "forcing" in r:
+            f = r["forcing"]
+            kw["forcing"] = f and resolve(f["factory"])(**f.get("kwargs", {}))
+        if "krylov_kwargs" in r:
+            kw["krylov_kwargs"] = dict(r["krylov_kwargs"])
         if self.acceptance == "df32":
             kw.update(residual_df=self.F_df, floor_rtol=r.get("floor_rtol"))
         if self.factory is not None:

@@ -38,8 +38,8 @@ def _direct(n):
     r = config["recipe"]
     axes = tuple(r["axis_names"])
     mesh = halo.make_mesh(r["mesh"], axes, device_type="cpu")
-    p = bratu2d.default_config(n, lam=config["problem"]["lam"])
-    u0 = traffic.initial_guess(config["problem"], n, "cpu")
+    p = bratu2d.default_config(n, **r["params_kwargs"])
+    u0 = traffic.initial_guess(config, n, "cpu")
     _, info = halo.newton_krylov_sharded(
         halo.sharded_residual_2d(bratu_padded, axes), u0, p, mesh,
         halo.P(*axes), newton_kwargs=dict(

@@ -1,10 +1,11 @@
 """The plain reference: the textbook Bratu residual, its Jacobian, the
-stated tolerance, and its imports."""
+stated tolerance, the sources' starting state, and its imports."""
 import math
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from nkbench.reference import bratu2d as ref
@@ -59,6 +60,40 @@ def test_judge_scores_a_root_and_a_start():
     assert ref.judge(u, u + 0.1, problem, recipe)["res_ratio"] == 0.0
     assert ref.judge(u + 0.1, u + 0.1, problem, recipe)["res_ratio"] > 1e6
     assert math.isinf(ref.judge(u[:-1], u, problem, recipe)["res_ratio"])
+
+
+def ex5_as_the_harness_made_it(problem, n, device, block=None):
+    """The ex5 / dsfifg starting state as the harness's traffic generator
+    formed it before the reference states it: the same operations in the
+    same order."""
+    lam = float(problem["lam"])
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=device)
+    d = torch.minimum(i, n + 1 - i) / (n + 1)
+    rows, cols = (d, d) if block is None else (d[block[0]], d[block[1]])
+    return (lam / (lam + 1.0)) * torch.sqrt(torch.minimum(rows[:, None],
+                                                          cols[None, :]))
+
+
+def blocks_2x2(n):
+    half = n // 2
+    return [(slice(a, a + half), slice(b, b + half))
+            for a in (0, half) for b in (0, half)]
+
+
+@pytest.mark.parametrize("n", [7, 2048])
+def test_initial_guess_is_the_old_formula_bit_for_bit(n):
+    problem = {"lam": 6.0, "initial_guess": "ex5"}
+    assert torch.equal(ref.initial_guess(problem, n, "cpu"),
+                       ex5_as_the_harness_made_it(problem, n, "cpu"))
+
+
+@pytest.mark.parametrize("block", blocks_2x2(24))
+def test_a_blocks_initial_guess_is_the_old_formula_bit_for_bit(block):
+    problem = {"lam": 6.0, "initial_guess": "ex5"}
+    got = ref.initial_guess(problem, 24, "cpu", block)
+    assert got.shape == (12, 12)
+    assert torch.equal(got, ex5_as_the_harness_made_it(problem, 24, "cpu",
+                                                       block))
 
 
 def test_reference_imports_nothing_of_jax_or_the_program():

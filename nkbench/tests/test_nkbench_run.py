@@ -129,48 +129,207 @@ def read(run):
 '''
 
 
-def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
+def _copy_tree(tmp_path):
+    """A copy of the benchmark (``BENCHMARK.json`` and ``nkbench/``), and
+    the bytes of each file copied."""
     shutil.copy(REPO / "BENCHMARK.json", tmp_path)
     shutil.copytree(REPO / "nkbench", tmp_path / "nkbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p: p.read_bytes() for p in (tmp_path / "nkbench").rglob("*")
-              if p.is_file()}
+    return {p: p.read_bytes() for p in (tmp_path / "nkbench").rglob("*")
+            if p.is_file()}
+
+
+def _add_cell(tmp_path, config, mix, name, per_layer=()):
+    """Add configuration ``config`` and a cell ``name`` of it under mix
+    ``mix`` to the copy, as files and entries alone; the cell reports
+    ``solve_s`` and the per-layer metrics named."""
+    c, t = config["name"], name.split(".", 1)[1]
+    (tmp_path / f"nkbench/configs/{c}.json").write_text(json.dumps(config))
+    (tmp_path / f"nkbench/traffic/{t}.json").write_text(json.dumps(mix))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": c, "source": "a test",
+                             "file": f"nkbench/configs/{c}.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": name, "config": c, "traffic": t,
+                               "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] == "solve_s" or m["name"] in per_layer:
+            m["workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench
+
+
+def _run_in_copy(tmp_path, body):
+    """Run ``body`` (Python, with ``harness`` and ``control`` of the copy
+    imported) in a process whose ``nkbench`` is the copy's, and return the
+    JSON it prints last."""
+    code = (f"import sys, json; sys.path[:0] = [{str(tmp_path)!r}, "
+            f"{str(REPO)!r}]\n"
+            "from nkbench import control, harness\n" + body)
+    out = _run_cli(tmp_path, "-c", code)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _unedited(before):
+    for p, data in before.items():
+        assert p.read_bytes() == data, f"{p} was edited"
+
+
+def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
+    before = _copy_tree(tmp_path)
     cfg = spec.load_json("config", "sfi-dst")
     cfg.update(name="dummy", problem=dict(cfg["problem"], lam=3.0))
+    cfg["recipe"].update(params_kwargs={"lam": 3.0})
     cfg["recipe"].pop("precond")
-    (tmp_path / "nkbench/configs/dummy.json").write_text(json.dumps(cfg))
-    mix = spec.load_json("traffic", "solve-8192")
-    mix.update(side=16)
-    (tmp_path / "nkbench/traffic/tiny.json").write_text(json.dumps(mix))
+    mix = dict(spec.load_json("traffic", "solve-8192"), side=16)
+    bench = _add_cell(tmp_path, cfg, mix, "dummy.tiny")
     (tmp_path / "nkbench/metrics/requests.py").write_text(DUMMY_METRIC)
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "dummy", "source": "a test",
-                             "file": "nkbench/configs/dummy.json",
-                             "reduced": [], "why": "a test"})
-    bench["workloads"].append({"name": "dummy.tiny", "config": "dummy",
-                               "traffic": "tiny", "chips": 1, "why": "a test"})
-    for m in bench["end_to_end"]:
-        if m["name"] == "solve_s":
-            m["workloads"].append("dummy.tiny")
     bench["per_layer"].append({"name": "requests", "unit": "count",
                                "better": "higher",
                                "source": "program_counter",
                                "layer": "Newton driver (newton.newton_krylov_jit)",
                                "moves": "solve_s", "workloads": ["dummy.tiny"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    code = (f"import sys, json; sys.path[:0] = [{str(tmp_path)!r}, "
-            f"{str(REPO)!r}]\n"
-            "from nkbench import harness\n"
-            "r = harness.run('dummy.tiny', 9, 0.3, True, device='cpu', "
-            "log=lambda m: None)\n"
-            "print(json.dumps(r))")
-    out = _run_cli(tmp_path, "-c", code)
-    assert out.returncode == 0, out.stderr[-3000:]
-    r = json.loads(out.stdout.strip().splitlines()[-1])
+    r = _run_in_copy(tmp_path, "r = harness.run('dummy.tiny', 9, 0.3, True, "
+                     "device='cpu', log=lambda m: None)\n"
+                     "print(json.dumps(r))")
     assert r["correct"]
     assert r["metrics"]["requests"]["value"] == r["attempted"] >= 1
-    for p, data in before.items():
-        assert p.read_bytes() == data, f"{p} was edited"
+    _unedited(before)
+
+
+# A second problem, added as files alone: the port's steady 2-D
+# convection-diffusion (nonsymmetric), Newton-GMRES with full GMRES, no
+# forcing, the DST, df32 acceptance, and a reference of its own
+CONVDIFF_REFERENCE = '''"""Plain float64 reference of 2-D convection-diffusion.
+
+    Δu − c·u·(u_x + u_y) + g = 0   on the unit square, zero Dirichlet values,
+
+by the 5-point Laplacian and central differences on an n × n interior of
+spacing h = 1/(n+1), h²-scaled, with g made so that u* = sin(πx)·sin(πy)
+is the discrete root; every request starts from zero.
+"""
+import math
+
+import torch
+
+F64 = torch.float64
+PAIR_EPS = 2.0 ** -47
+
+
+def operator(u, c):
+    h = 1.0 / (u.shape[-1] + 1)
+    p = torch.nn.functional.pad(u, (1, 1, 1, 1))
+    lap = p[2:, 1:-1] + p[:-2, 1:-1] + p[1:-1, 2:] + p[1:-1, :-2] - 4.0 * u
+    conv = (p[2:, 1:-1] - p[:-2, 1:-1]) + (p[1:-1, 2:] - p[1:-1, :-2])
+    return lap - (0.5 * h * c) * u * conv
+
+
+def residual(u, c):
+    n = u.shape[-1]
+    s = torch.sin(math.pi * torch.arange(1, n + 1, dtype=F64,
+                                         device=u.device) / (n + 1))
+    return operator(u.to(F64), c) - operator(s[:, None] * s[None, :], c)
+
+
+def floor(u0, c):
+    """The float32-pair floor of ‖F‖ at u0, measured as for Bratu."""
+    worst = 0.0
+    for axis in (0, 1):
+        k = torch.arange(u0.shape[axis], device=u0.device)
+        signs = (1 - 2 * (k % 2)).to(F64)
+        signs = signs[:, None] if axis == 0 else signs[None, :]
+        jv = torch.func.jvp(lambda u: residual(u, c), (u0,),
+                            (u0.abs() * PAIR_EPS * signs,))[1]
+        worst = max(worst, float(torch.linalg.vector_norm(jv)))
+    return worst / 4.0
+
+
+def tolerance(u0, c, recipe):
+    tol = (recipe["tol_rel"] * float(torch.linalg.vector_norm(
+        residual(u0, c))) + recipe["tol_abs"])
+    return max(tol, recipe["floor_rtol"] * floor(u0.to(F64), c))
+
+
+def initial_guess(problem, n, device, block=None):
+    u = torch.zeros(n, n, dtype=F64, device=device)
+    return u if block is None else u[block]
+
+
+def judge(u, u0, problem, recipe):
+    if tuple(u.shape) != tuple(u0.shape) or not bool(torch.isfinite(u).all()):
+        return {"res": math.inf, "tol": math.nan, "res_ratio": math.inf}
+    c = float(problem["c"])
+    res = float(torch.linalg.vector_norm(residual(u, c)))
+    tol = tolerance(u0, c, recipe)
+    return {"res": res, "tol": tol, "res_ratio": res / tol}
+'''
+
+CD = "newtonkrylov_tpu_torch.problems.convdiff2d:"
+CONVDIFF_CONFIG = {
+    "name": "cd-gmres", "source": "a test",
+    "problem": {"name": "convdiff2d", "c": 2.0, "initial_guess": "zero"},
+    "reference": "cd_local",
+    "recipe": {
+        "driver": "newtonkrylov_tpu_torch.newton:newton_krylov_jit",
+        "residual": CD + "residual_scaled",
+        "residual_df": CD + "residual_scaled_df",
+        "params": CD + "default_config",
+        "params_kwargs": {"c": 2.0}, "params_dtype": "float64",
+        "acceptance": "df32", "algo": "gmres", "forcing": None,
+        "krylov_kwargs": {"restart": None, "itmax": 200},
+        "krylov_dtype": "float32", "tol_rel": 1e-8, "tol_abs": 1e-12,
+        "max_niter": 20, "floor_rtol": 2.0,
+        "precond": {"factory": "newtonkrylov_tpu_torch.fftprec:fft_poisson",
+                    "kwargs": {}, "refresh": "once"}}}
+
+
+def test_a_second_problem_needs_no_edit(tmp_path):
+    before = _copy_tree(tmp_path)
+    (tmp_path / "nkbench/reference/cd_local.py").write_text(CONVDIFF_REFERENCE)
+    mix = dict(spec.load_json("traffic", "solve-8192"), side=SIDE)
+    _add_cell(tmp_path, CONVDIFF_CONFIG, mix, "cd-gmres.tiny",
+              per_layer=("outers", "inners"))
+    got = _run_in_copy(tmp_path, f"""
+out = {{}}
+for trace in (False, True):
+    out[str(trace)] = harness.run('cd-gmres.tiny', {SEED}, 0.3, trace,
+                                  device='cpu', log=lambda m: None)
+for fault in sorted(control.FAULTS):
+    out[fault] = harness.run('cd-gmres.tiny', {SEED}, 0.2, False,
+                             device='cpu',
+                             system_factory=control.broken(fault),
+                             log=lambda m: None)
+from nkbench.system import System
+s = System(json.load(open({str(tmp_path / "nkbench/configs/cd-gmres.json")!r})),
+           {SIDE}, 'cpu')
+kw = s.kwargs()
+out['options'] = [kw['forcing'], kw['krylov_kwargs'], str(s.p.b.dtype),
+                  str(s.p.b.device), s.p.c]
+print(json.dumps(out))
+""")
+    for trace in ("False", "True"):
+        r = got[trace]
+        assert r["correct"] and r["failed"] == 0 and r["attempted"] >= 1
+        assert r["checks"]["res_ratio"]["value"] <= 1.0
+    m = got["True"]["metrics"]
+    assert 1 <= m["outers"]["value"] <= m["inners"]["value"]
+    for fault in sorted(control.FAULTS):
+        r = got[fault]
+        assert not r["correct"] and r["failed"] == r["attempted"] >= 1
+    assert got["options"] == [None, {"restart": None, "itmax": 200},
+                              "torch.float64", "cpu", 2.0]
+    _unedited(before)
+
+
+def test_a_params_dtype_is_stated_where_the_entry_point_takes_one():
+    from nkbench.system import System
+
+    cfg = json.loads(json.dumps(CONVDIFF_CONFIG))
+    del cfg["recipe"]["params_dtype"]
+    with pytest.raises(ValueError, match="params_dtype"):
+        System(cfg, SIDE, "cpu")
 
 
 def test_served_answers_are_kept_and_judged():

@@ -143,6 +143,18 @@ def test_events_reduce_to_a_replay_and_refuse_a_short_list():
     assert spans.from_events(_events(), [], log.append) is None
 
 
+def test_events_before_the_solve_are_not_read():
+    """A launch of the replay's primer, before ``since``, whose kernel
+    record the profiler lost, does not make the list short."""
+    cpu = DeviceType.CPU
+    ev = [Ev("aten::add_", cpu, -9, -8, 90),
+          Ev("cudaLaunchKernel", cpu, -9, -8, 91, 90)] + _events()
+    log = []
+    assert spans.from_events(ev, _solve(0, 1), log.append, since=-9) is None
+    rep = spans.from_events(ev, _solve(0, 1), log.append, since=-1)
+    assert rep.busy == {"linearize": 20, "krylov": 30}
+
+
 def test_a_launch_with_no_device_event_is_named_where_it_fell():
     log = []
     spans.from_events(_events(drop_kernel=True), _solve(0, 1), log.append)

@@ -29,8 +29,9 @@ def dsfifg_xs(nx: int, ny: int, lam: float) -> list:
 @pytest.mark.parametrize("n", [1, 2, 5, 8])
 @pytest.mark.parametrize("config", CONFIGS)
 def test_initial_guess_is_the_sources(config, n):
-    problem = spec.load_json("config", config)["problem"]
-    got = traffic.initial_guess(problem, n, torch.device("cpu"))
+    cfg = spec.load_json("config", config)
+    problem = cfg["problem"]
+    got = traffic.initial_guess(cfg, n, torch.device("cpu"))
     want = torch.tensor(dsfifg_xs(n, n, problem["lam"]),
                         dtype=torch.float64).reshape(n, n)
     # x(k) runs along i fastest: the grid is symmetric, so either layout
@@ -39,9 +40,10 @@ def test_initial_guess_is_the_sources(config, n):
 
 
 def test_an_unknown_initial_guess_is_refused():
+    config = {"reference": "bratu2d",
+              "problem": {"lam": 6.0, "initial_guess": "bump"}}
     with pytest.raises(ValueError):
-        traffic.initial_guess({"lam": 6.0, "initial_guess": "bump"}, 4,
-                              torch.device("cpu"))
+        traffic.initial_guess(config, 4, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
@@ -65,9 +67,9 @@ def test_each_cell_draws_the_same_u0_from_the_same_seed(cell):
 @pytest.mark.parametrize("block", [(slice(0, 8), slice(8, 16)),
                                    (slice(8, 16), slice(0, 8))])
 def test_a_rank_forms_its_block_of_the_starting_state(block):
-    problem = spec.load_json("config", "sfi-sharded")["problem"]
-    whole = traffic.initial_guess(problem, 16, "cpu")
-    assert torch.equal(traffic.initial_guess(problem, 16, "cpu", block),
+    config = spec.load_json("config", "sfi-sharded")
+    whole = traffic.initial_guess(config, 16, "cpu")
+    assert torch.equal(traffic.initial_guess(config, 16, "cpu", block),
                        whole[block])
 
 

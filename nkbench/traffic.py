@@ -11,9 +11,9 @@ how requests arrive:
   the one before it returns.
 
 Every request starts from the initial guess its configuration's source
-states (``"initial_guess"`` in the configuration's ``"problem"``), made
-afresh by :func:`initial_guess`.  The seed draws which answers of an open
-loop the reference checks (:func:`checked`).
+states, made afresh by :func:`initial_guess` from the configuration's
+plain reference.  The seed draws which answers of an open loop the
+reference checks (:func:`checked`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+
+from .check import reference
 
 
 def _rng(seed: int, *salt: int) -> np.random.Generator:
@@ -48,24 +50,10 @@ def checked(mix: dict, seed: int, count: int) -> List[int]:
                                                          replace=False))
 
 
-def initial_guess(problem: dict, n: int, device, block=None):
-    """The starting state the problem's source states, on the n × n
-    interior of the unit square (spacing h = 1/(n+1)), in float64 on
-    ``device``; with ``block`` (a pair of slices of the rows and columns)
-    only that block of it, as a rank of a sharded solve forms its own.
-
-    ``"ex5"``: PETSc SNES ex5's ``FormInitialGuess`` and MINPACK-2's
-    ``dsfifg`` (task ``'XS'``), ``u₀ = λ/(λ+1)·sqrt(d)`` with ``d`` the
-    smaller of the point's distances to the boundary along x and along y.
-    """
-    import torch
-
-    if problem.get("initial_guess") != "ex5":
-        raise ValueError(f"unknown initial guess "
-                         f"{problem.get('initial_guess')!r}")
-    lam = float(problem["lam"])
-    i = torch.arange(1, n + 1, dtype=torch.float64, device=device)
-    d = torch.minimum(i, n + 1 - i) / (n + 1)
-    rows, cols = (d, d) if block is None else (d[block[0]], d[block[1]])
-    return (lam / (lam + 1.0)) * torch.sqrt(torch.minimum(rows[:, None],
-                                                          cols[None, :]))
+def initial_guess(config: dict, n: int, device, block=None):
+    """The starting state of every request of ``config``, on the n × n
+    interior in float64 on ``device`` (with ``block``, a pair of slices of
+    the rows and columns, that block of it): the source's own, as the
+    configuration's reference (``nkbench/reference/<name>.py``) states it."""
+    return reference(config["reference"]).initial_guess(
+        config["problem"], n, device, block)
