@@ -29,7 +29,12 @@ Phases (each raises on failure; the script exits non-zero after any):
    variants at n = 64 and 1024, f32, k = 1, 7 and 8, timed per call, and
    every step at the pass boundaries (carried and ping-pong at k = 15, 16,
    17, 33, 34; ping-pong unrolled 2 and 4 at k = 36 and 40) at n = 64;
-5. ``df32.selfcheck()`` on the card;
+5. ``df32.selfcheck()`` on the card, then K7 (the Bratu df32 acceptance
+   residual, which has no TPU counterpart) against its plain version, the
+   eager df32 chain, both words bit for bit on the same card inputs at
+   2048² (zero ghosts, as ``residual_scaled_df`` pads, and nonzero ghosts,
+   as a halo exchange hands them over) and at 8192², timed at 2048² by the
+   three clocks of phase 2 and at 8192² per call by CUDA events;
 6. the main path of the first slice: the aligned-layout solve at 2048² (f64
    state, f32 Krylov, matvecs through K1, residuals through K2) and the
    flagship solve at 2048² (f32 Krylov, df32 acceptance residual,
@@ -389,6 +394,9 @@ SINGLE_PASS_SHARDED_ATOL = 1e-6
 # multiply issues as an instruction of its own, at half that rate.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12 / 2
+# K7's float32 operations an element (csrc/bratu_df.cu), with the split of
+# the reduced argument r shared by the Horner chain's twelve products
+BRATU_DF_OPS = 613
 
 
 def log(msg: str) -> None:
@@ -542,7 +550,9 @@ def _bound(key, R, C, n, itemsize, steps=0):
     element, K2 8 (eᵘ as one), K3 5 per step + a scale on half the steps +
     w − 4 once, K5 the same on all R·C, K4 11 per degree step + 1, K6 (the
     hoisted stencil step of the probe, over all R·C) 4 adds and 2
-    multiplies per step + w − 4 and the scaled mask once."""
+    multiplies per step + w − 4 and the scaled mask once; K7 (on the
+    (n, n) interior: four words read, two written)
+    ``BRATU_DF_OPS`` per element."""
     arrays, ops = {
         "stencil_jvp": (3, 7 * n * n),
         "bratu_residual": (2, 8 * n * n),
@@ -550,6 +560,7 @@ def _bound(key, R, C, n, itemsize, steps=0):
         "stencil_chain_probe": (3, R * C * (1 + 5 * steps + steps // 2)),
         "chebyshev_apply": (3, n * n * (1 + 11 * steps)),
         "chain_call": (3, R * C * (2 + 6 * steps)),
+        "bratu_residual_df": (6, BRATU_DF_OPS * n * n),
     }[key]
     t_bytes = arrays * R * C * itemsize / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
@@ -580,7 +591,7 @@ def phase_environment(torch):
 
     from newtonkrylov_tpu_torch.kernels import build
 
-    sources = ("stencil2d", "chain2d", "chain_probe")
+    sources = ("stencil2d", "chain2d", "chain_probe", "bratu_df")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         list(pool.map(build.load, sources))
@@ -669,6 +680,68 @@ def phase_kernels(torch):
                 ck, cp = times[name]
                 summary[key] = (err, ck["graph"], cp["graph"])
     return summary
+
+
+def phase_df_kernel(torch):
+    """K7 against its plain version (the eager df32 chain), both words bit
+    for bit on the same card inputs: a df32 state near the solution's scale
+    at the flagship's side N and at XL_N, padded with zero ghosts as
+    ``residual_scaled_df`` pads it, and at N also with nonzero ghosts, as
+    ``halo.exchange_2d`` hands a block over; c = Δx²λ at λ = LAM.  The call
+    at N timed by the three clocks of ``_clocks`` (the kernels JSON takes
+    the graph replay), the call at XL_N per call by CUDA events.  Returns
+    (largest |kernel − plain| of the hi words, ms, plain ms) at N."""
+    from newtonkrylov_tpu_torch import df32 as dd
+    from newtonkrylov_tpu_torch.kernels import stencil2d as k
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err, out = 0.0, None
+    for n in (N, XL_N):
+        c = (1.0 / (n + 1)) ** 2 * LAM
+        u = tuple(dd.df_from_f64(0.3 * torch.randn(
+            (n, n), generator=gen, device=dev, dtype=torch.float64)))
+        cases = {"zero ghosts": tuple(torch.nn.functional.pad(w, (1, 1, 1, 1))
+                                      for w in u)}
+        if n == N:
+            cases["exchanged ghosts"] = tuple(dd.df_from_f64(0.3 * torch.randn(
+                (n + 2, n + 2), generator=gen, device=dev, dtype=torch.float64)))
+        for ghosts, up in cases.items():
+            got = k.bratu_residual_df(*up, *u, c)
+            ref = k.bratu_residual_df_xla(*up, *u, c)
+            torch.cuda.synchronize()
+            for word, g, r in zip(("hi", "lo"), got, ref):
+                if not _bitwise_equal(torch, g, r):
+                    raise AssertionError(f"K7 n={n} {ghosts}: {word} words "
+                                         "differ from plain")
+            err = max(err, float((got[0] - ref[0]).abs().max()))
+            log(f"[kernels] n={n} float32 {ghosts}: K7 bratu_residual_df hi "
+                f"and lo bitwise equal, max|ref| {float(ref[0].abs().max()):.3e}")
+        up = cases["zero ghosts"]
+
+        def kern():
+            return k.bratu_residual_df(*up, *u, c)
+
+        def plain():
+            return k.bratu_residual_df_xla(*up, *u, c)
+
+        bound_ms, bound_by = _bound("bratu_residual_df", n, n, n, 4)
+        if n == N:
+            ck, cp = _clocks(kern), _clocks(plain, 20)
+            log(f"[clocks] n={n} float32: K7 kernel: {_fmt_clocks(ck)}")
+            log(f"[clocks] n={n} float32: K7 plain: {_fmt_clocks(cp)}")
+            out = (err, ck["graph"], cp["graph"])
+            ms = ck["graph"]
+        else:
+            ms, plain_ms = _time_ms(kern), _time_ms(plain, 3)
+            log(f"[kernels] n={n} float32: K7 per call {ms:.4f} ms vs plain "
+                f"{plain_ms:.4f} ms (CUDA events)")
+        log(f"[kernels] n={n} float32: K7 bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{BRATU_DF_OPS} operations an element), {100 * bound_ms / ms:.1f}% "
+            "of it")
+        del u, up, cases
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_chain_kernels(torch, nkt, bratu2d):
@@ -3812,6 +3885,7 @@ def main() -> int:
     summary.update(phase_chain_kernels(torch, nkt, bratu2d))
     summary["chain_call"] = phase_probe_kernels(torch)
     phase_selfcheck(torch)
+    summary["bratu_residual_df"] = phase_df_kernel(torch)
     log(f"[summary] build and kernel checks: {time.perf_counter() - t_start:.1f} s")
 
     # Each path counted on its own: the counts are zeroed just before it and
@@ -3839,11 +3913,14 @@ def main() -> int:
         return (phase_aligned(torch, nkt, bratu2d, "run", keep=aligned),
                 phase_flagship(torch, nkt, bratu2d, "run", keep=flagship))
 
-    info_a, info_f = counted("main path", ("stencil_jvp", "bratu_residual"),
-                             main_path)
+    info_a, info_f = counted("main path", ("stencil_jvp", "bratu_residual",
+                                           "bratu_residual_df"), main_path)
     if launches["stencil_jvp"] < info_a.stats.inner_iterations:
         raise AssertionError("K1 launched fewer times than the aligned "
                              "solve's inner iterations")
+    if launches["bratu_residual_df"] < info_f.stats.outer_iterations + 1:
+        raise AssertionError("K7 launched fewer times than the flagship's "
+                             "acceptance residuals (outers + 1)")
 
     # this slice's path (r): the exported solves, the chain timer and the
     # trace (the sharded (r4) and (q5) run in path (q)'s group below)
@@ -4102,12 +4179,16 @@ def main() -> int:
     phase_conv25_small(torch, nkt)
     log(f"[summary] warm repeats and 64² cross-checks: "
         f"{time.perf_counter() - t0:.1f} s")
-    # this slice's path (v): the design decisions measured on the card; it
-    # runs no hand-written kernel (the DST engines, df32 and the
+    # this slice's path (v): the design decisions measured on the card; its
+    # one hand-written kernel is K7, (v2)'s df32 acceptance residual and the
+    # Bratu solves' (the DST engines, the other problems' df32 and the
     # orthogonalizations are library and plain PyTorch work).  Its CGS2
     # convection-diffusion solve is the warm repeat the breakdown reads
-    design = counted("design measurements (v)", (),
-                     lambda: phase_design(torch, nkt, bratu2d, native, profile))
+    v_launches = {}
+    design = counted("design measurements (v)", ("bratu_residual_df",),
+                     lambda: phase_design(torch, nkt, bratu2d, native, profile),
+                     into=v_launches)
+    launches["bratu_residual_df"] += v_launches["bratu_residual_df"]
     warm_wall = design["v3"][0]["cgs2"][2]
     # this slice's path (w): the single-pass DST mode; it runs no
     # hand-written kernel (the products are cuBLAS's bf16 tensor-core
@@ -4131,12 +4212,16 @@ def main() -> int:
         "stencil_chain_probe": ("chain2d", f"{pallas}:366", N, CHAIN[0]),
         "chain_call": ("chain_probe", "benchmarks/kernel_probe.py:42",
                        PROBE_N, PROBE_KS),
+        "bratu_residual_df": ("bratu_df", "none: the JAX df32 is plain jnp "
+                              "(newtonkrylov_tpu/df32.py)", N, 0),
     }
     kernels = []
     for name, (src, replaces, n, steps) in table.items():
         err, ms, plain_ms = summary[name]
-        bound_ms, bound_by = _bound(name, n + 8, k.round_up(n + 2, 128), n, 4,
-                                    steps)
+        # K7 reads and writes (n, n) words, the others the aligned layout
+        R, C = (n, n) if name == "bratu_residual_df" else (
+            n + 8, k.round_up(n + 2, 128))
+        bound_ms, bound_by = _bound(name, R, C, n, 4, steps)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"newtonkrylov_tpu_torch/csrc/{src}.cu",

@@ -33,7 +33,8 @@ __all__ = [
     "DF", "two_sum", "fast_two_sum", "two_prod",
     "df_from_f64", "df_to_f64", "df_from_f32", "tree_add_f32",
     "add", "add_f32", "neg", "sub", "mul", "mul_f32", "exp", "norm_hi",
-    "df_map", "shift", "neighbor_sum", "scale_pow2", "scale_const", "scaled_exp",
+    "df_map", "shift", "neighbor_sum", "scale_pow2", "scale_const", "ln_split",
+    "scaled_exp",
     "df_matvec", "selfcheck", "floor_estimate",
 ]
 
@@ -262,19 +263,26 @@ def scale_const(a: DF, c: float) -> DF:
     return DF(p, e)
 
 
-def scaled_exp(a: DF, c: float) -> DF:
-    """c·eᵃ for a host constant c ≠ 0, computed as ±e^(a + ln|c|): the
-    constant enters through an exact df32 add in the exponent, never as an
-    ``x·c_hi + x·c_lo`` pattern."""
+def ln_split(c: float):
+    """``(lnc_hi, lnc_lo, negative)``: ln|c| of a host constant c ≠ 0 as a
+    float32 (hi, lo) pair, and whether c < 0 — how :func:`scaled_exp` takes
+    its constant (the Bratu kernel K7 is handed the same three)."""
     cf = float(c)
     if cf == 0.0:
         raise ValueError("scaled_exp needs a nonzero constant")
     lnc = math.log(abs(cf))
     lnc_hi = _f32(lnc)
-    lnc_lo = _f32(lnc - lnc_hi)
+    return lnc_hi, _f32(lnc - lnc_hi), cf < 0
+
+
+def scaled_exp(a: DF, c: float) -> DF:
+    """c·eᵃ for a host constant c ≠ 0, computed as ±e^(a + ln|c|): the
+    constant enters through an exact df32 add in the exponent, never as an
+    ``x·c_hi + x·c_lo`` pattern."""
+    lnc_hi, lnc_lo, negative = ln_split(c)
     out = exp(add(a, DF(torch.full_like(a.hi, lnc_hi),
                         torch.full_like(a.hi, lnc_lo))))
-    return out if cf > 0 else neg(out)
+    return neg(out) if negative else out
 
 
 def _comp_sum_last(P, E):

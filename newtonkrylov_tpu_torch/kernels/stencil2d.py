@@ -36,21 +36,31 @@ passes of up to S steps held on chip, one launch each, cut by
 * K5 :func:`stencil_chain_probe` — the unmasked speed-of-light probe
   (replaces ``stencil_chain_probe_pallas``).
 
+One kernel has no TPU counterpart (CUDA in ``csrc/bratu_df.cu``), a
+``torch.library.custom_op`` on the df32 acceptance path of every Bratu
+solve:
+
+* K7 :func:`bratu_residual_df` — the 2-D Bratu df32 residual of
+  :func:`~newtonkrylov_tpu_torch.problems.bratu2d.residual_scaled_df_padded`
+  in one launch, bit for bit the eager df32 chain it replaces on the card
+  (:func:`bratu_residual_df_xla`; the JAX package's df32 is plain ``jnp``).
+
 On a CPU tensor each op runs its plain PyTorch version (the ``*_xla``
-functions, which mirror the Pallas bodies operation for operation); on a
-CUDA tensor it launches the CUDA kernel or raises.  ``LAUNCHES`` counts
-the calls that launched a kernel, and only those: one per call, whatever
-the number of passes.
+functions, which mirror the Pallas bodies, or K7's eager df32 chain,
+operation for operation); on a CUDA tensor it launches the CUDA kernel or
+raises.  ``LAUNCHES`` counts the calls that launched a kernel, and only
+those: one per call, whatever the number of passes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import df32 as dd
 from ..utils import default_device
 from . import build
 
@@ -69,12 +79,15 @@ __all__ = [
     "stencil_jvp_chain",
     "stencil_chain_probe",
     "chebyshev_apply",
+    "bratu_residual_df_xla",
+    "bratu_residual_df",
     "LAUNCHES",
     "reset_launch_counts",
 ]
 
 LAUNCHES = {"stencil_jvp": 0, "bratu_residual": 0, "stencil_jvp_chain": 0,
-            "stencil_chain_probe": 0, "chebyshev_apply": 0}
+            "stencil_chain_probe": 0, "chebyshev_apply": 0,
+            "bratu_residual_df": 0}
 
 
 def reset_launch_counts() -> None:
@@ -260,6 +273,10 @@ _SIGNATURES = {
                             + [_INT] + _PLAN + [_INT, _VP]),
     "chebyshev_apply": ("chain2d", [_VP] * 5 + [_INT] * 3
                         + [_INT] + _PLAN + [_INT, _VP]),
+    # K7 is not on the aligned layout: (up_hi, up_lo, u_hi, u_lo, out_hi,
+    # out_lo, n, m, consts, n_consts, negative_c, stream), see _launch_df
+    "bratu_residual_df": ("bratu_df", [_VP] * 6 + [_INT] * 2
+                          + [ctypes.POINTER(ctypes.c_float), _INT, _INT, _VP]),
 }
 _BOUND: dict = {}
 
@@ -334,6 +351,84 @@ def bratu_residual(u: torch.Tensor, n: int, scale: float) -> torch.Tensor:
 @bratu_residual.register_fake
 def _(u, n, scale):
     return torch.empty_like(u)
+
+
+def bratu_residual_df_xla(up_hi, up_lo, u_hi, u_lo, c: float):
+    """Plain version of K7: the eager df32 chain ``neighbor_sum(up) +
+    (−4)·u + c·eᵘ`` over the (n, m) interior ``u`` of the ghost-padded
+    (n+2, m+2) block ``up``, each a pair of float32 words; returns the
+    (hi, lo) words of the residual."""
+    up, u = dd.DF(up_hi, up_lo), dd.DF(u_hi, u_lo)
+    s = dd.neighbor_sum(up, [(1, 0), (-1, 0), (0, 1), (0, -1)])
+    s = dd.add(s, dd.scale_pow2(u, -4.0))
+    return tuple(dd.add(s, dd.scaled_exp(u, c)))
+
+
+def _check_df(up_hi, up_lo, u_hi, u_lo):
+    """K7's arguments: four 2-D float32 tensors on one device, the (n, m)
+    interior words of one shape, the padded words (n+2, m+2)."""
+    words = (up_hi, up_lo, u_hi, u_lo)
+    for a in words:
+        if a.device != u_hi.device:
+            raise ValueError(f"bratu_residual_df: expected tensors on one "
+                             f"device, got {a.device} and {u_hi.device}")
+        if a.dtype != torch.float32:
+            raise ValueError(f"bratu_residual_df: expected float32 words, "
+                             f"got {a.dtype}")
+    shapes = [tuple(a.shape) for a in words]
+    n, m = shapes[2] if len(shapes[2]) == 2 else (0, 0)
+    if n < 1 or m < 1 or shapes != [(n + 2, m + 2)] * 2 + [(n, m)] * 2:
+        raise ValueError(f"bratu_residual_df: expected (n+2, m+2) padded and "
+                         f"(n, m) interior words, n, m ≥ 1, got {shapes}")
+
+
+def _exp_constants(c: float):
+    """K7's host constants, laid out as ``Consts`` in ``csrc/bratu_df.cu``:
+    df32.py's own float32 values and ln|c| split as :func:`df32.scaled_exp`
+    splits it; and whether c < 0."""
+    lnc_hi, lnc_lo, negative = dd.ln_split(c)
+    values = [dd._SPLIT, dd._INV_LN2, dd._LN2_HI, dd._LN2_LO, lnc_hi, lnc_lo]
+    for hi, lo in dd._FACT_INV:
+        values += [hi, lo]
+    return (ctypes.c_float * len(values))(*values), negative
+
+
+def _launch_df(up_hi, up_lo, u_hi, u_lo, c: float):
+    n, m = u_hi.shape
+    consts, negative = _exp_constants(c)
+    words = [a.contiguous() for a in (up_hi, up_lo, u_hi, u_lo)]
+    out_hi, out_lo = torch.empty_like(words[2]), torch.empty_like(words[2])
+    fn = _kernel("bratu_residual_df")
+    with torch.cuda.device(out_hi.device):
+        stream = torch.cuda.current_stream(out_hi.device).cuda_stream
+        rc = fn(*(a.data_ptr() for a in (*words, out_hi, out_lo)), n, m,
+                consts, len(consts), int(negative), stream)
+    if rc != 0:
+        raise RuntimeError(f"bratu_residual_df: CUDA kernel launch failed "
+                           f"(cudaError_t {rc})")
+    LAUNCHES["bratu_residual_df"] += 1
+    return out_hi, out_lo
+
+
+@torch.library.custom_op("newtonkrylov_tpu_torch::bratu_residual_df",
+                         mutates_args=())
+def bratu_residual_df(up_hi: torch.Tensor, up_lo: torch.Tensor,
+                      u_hi: torch.Tensor, u_lo: torch.Tensor,
+                      c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: the (hi, lo) words of the df32 Bratu residual
+    ``neighbor_sum(up) − 4u + c·eᵘ`` of the (n, m) interior ``u`` and its
+    ghost-padded (n+2, m+2) block ``up`` (see
+    :func:`bratu_residual_df_xla`); c ≠ 0 a host constant."""
+    _check_df(up_hi, up_lo, u_hi, u_lo)
+    if _on_cpu(u_hi):
+        return bratu_residual_df_xla(up_hi, up_lo, u_hi, u_lo, c)
+    return _launch_df(up_hi, up_lo, u_hi, u_lo, c)
+
+
+@bratu_residual_df.register_fake
+def _(up_hi, up_lo, u_hi, u_lo, c):
+    _check_df(up_hi, up_lo, u_hi, u_lo)
+    return u_hi.new_empty(u_hi.shape), u_hi.new_empty(u_hi.shape)
 
 
 class TilePlan(NamedTuple):

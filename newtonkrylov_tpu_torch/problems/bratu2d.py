@@ -91,10 +91,11 @@ def residual_scaled_df(u: dd.DF, p: Params) -> dd.DF:
 def residual_scaled_df_padded(up: dd.DF, u: dd.DF, p: Params) -> dd.DF:
     """df32 residual core on a pre-padded (n+2, m+2) DF block ``up``; ``u``
     is the unpadded interior.  −4u is an exact power-of-two scale and Δx²λ
-    enters eᵘ through an exponent shift (:func:`~df32.scaled_exp`)."""
-    s = dd.neighbor_sum(up, [(1, 0), (-1, 0), (0, 1), (0, -1)])
-    s = dd.add(s, dd.scale_pow2(u, -4.0))
-    return dd.add(s, dd.scaled_exp(u, float(p.dx) * float(p.dx) * float(p.lam)))
+    enters eᵘ through an exponent shift (:func:`~df32.scaled_exp`).  One
+    call of K7 (:func:`~newtonkrylov_tpu_torch.kernels.stencil2d.bratu_residual_df`):
+    a kernel launch on the card, the eager df32 chain on the CPU."""
+    c = float(p.dx) * float(p.dx) * float(p.lam)
+    return dd.DF(*k.bratu_residual_df(up.hi, up.lo, u.hi, u.lo, c))
 
 
 class _AlignedResidual(torch.autograd.Function):

@@ -76,13 +76,169 @@ def test_kernels_reject_bad_inputs(cuda_device):
         tk.stencil_jvp(v, v.cpu(), n)
 
 
-@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual"])
+@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual",
+                                "bratu_residual_df"])
 def test_custom_op_registration_on_card(cuda_device, op):
     n = 64
     v = tk.aligned_wrap(torch.randn((n, n), device=cuda_device))
-    args = (v, v.abs(), n) if op == "stencil_jvp" else (v, n, 1e-3)
+    w = torch.randn((n + 2, n + 2), device=cuda_device)
+    args = {"stencil_jvp": (v, v.abs(), n), "bratu_residual": (v, n, 1e-3),
+            "bratu_residual_df": (w, w * 1e-8, w[1:-1, 1:-1].contiguous(),
+                                  w[1:-1, 1:-1] * 1e-8, 1e-3)}[op]
     result = torch.library.opcheck(getattr(tk, op), args)
     assert set(result.values()) == {"SUCCESS"}
+
+
+# -- K7: the df32 Bratu acceptance residual, bit for bit its eager chain -------
+
+
+def _df_pair(shape, gen, scale=1.0):
+    """A random df32 pair (hi, lo) of float32 words on the device of the
+    generator ``gen``."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float64) * scale
+    return tuple(df32.df_from_f64(x))
+
+
+def _k7_words_equal(up, u, c):
+    """K7 against its plain version on the same card tensors: both words
+    bit for bit (as int32), one launch counted."""
+    before = tk.LAUNCHES["bratu_residual_df"]
+    got = tk.bratu_residual_df(*up, *u, c)
+    assert tk.LAUNCHES["bratu_residual_df"] == before + 1
+    want = tk.bratu_residual_df_xla(*up, *u, c)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        bad = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+        assert bad == 0, f"{bad} words differ at c = {c}"
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 300), (300, 1), (5, 7),
+                                   (255, 257), (1000, 333), (517, 2049)])
+@pytest.mark.parametrize("c", [6.0 / 2049 ** 2, -0.5], ids=["c>0", "c<0"])
+def test_bratu_residual_df_matches_plain_on_card(cuda_device, shape, c):
+    """Padded blocks square and not, odd sides, 1×m and n×1, sides of no
+    tile multiple; the interior drawn apart from the padded block's centre,
+    the padded block's ghosts nonzero."""
+    n, m = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 7919 + m)
+    _k7_words_equal(_df_pair((n + 2, m + 2), gen, 0.5),
+                    _df_pair((n, m), gen, 0.5), c)
+
+
+def _k7_special_interior(c):
+    """Interior values that probe K7's corners, as (hi, lo) float32 lists:
+    ties of x·INV_LN2 at half-integers (x = the df32 sum u + ln|c| that
+    df32.exp reduces), states past the ±126 exponent clamp, and signed
+    zeros in both words."""
+    lnc_hi, lnc_lo, _ = df32.ln_split(c)
+    his, los = [], []
+    for k in range(-30, 31):
+        base = torch.tensor((k + 0.5) * 0.6931471805599453 - lnc_hi,
+                            dtype=torch.float32)
+        steps = torch.arange(-256, 257, dtype=torch.float32)
+        cand = torch.nextafter(base, torch.tensor(float("inf"))) - base
+        u_hi = base + steps * cand  # within a few hundred ulps of the tie
+        for lo in (0.0, float(torch.finfo(torch.float32).eps) * 0.25 * abs(k)):
+            u_lo = torch.full_like(u_hi, lo * float(u_hi[0]))
+            hi_n, lo_n = df32.fast_two_sum(u_hi, u_lo)
+            a = df32.add(df32.DF(hi_n, lo_n), df32.DF(
+                torch.full_like(u_hi, lnc_hi), torch.full_like(u_hi, lnc_lo)))
+            t = (a.hi + a.lo) * df32._INV_LN2
+            tie = (t - torch.floor(t)) == 0.5
+            his += hi_n[tie].tolist()
+            los += lo_n[tie].tolist()
+    ties = len(his)
+    for x in (85.0, 87.0, 88.7, 89.0, 95.0, 120.0, 140.0):
+        for s in (1.0, -1.0):
+            his.append(s * x - lnc_hi)
+            los.append(s * 3e-7)
+    for h in (0.0, -0.0):
+        for lo in (0.0, -0.0):
+            his.append(h)
+            los.append(lo)
+    return his, los, ties
+
+
+@pytest.mark.parametrize("c", [6.0 / 8193 ** 2, -0.75, 1.0],
+                         ids=["c>0", "c<0", "c=1"])
+def test_bratu_residual_df_special_states_on_card(cuda_device, c):
+    """Ties at half-integers (rintf rounds them to even, as torch.round
+    does), k driven into the ±126 clamp (denormal lo words among the
+    results), zeros and negative zeros in the interior and the ghosts."""
+    his, los, ties = _k7_special_interior(c)
+    assert ties >= 20
+    m = 129
+    n = max(16, -(-len(his) // m))
+    gen = torch.Generator(device=cuda_device).manual_seed(ties)
+    u_hi, u_lo = _df_pair((n, m), gen, 0.5)
+    flat = torch.tensor(his, dtype=torch.float32, device=cuda_device)
+    u_hi.view(-1)[:flat.numel()] = flat
+    u_lo.view(-1)[:flat.numel()] = torch.tensor(los, dtype=torch.float32,
+                                                device=cuda_device)
+    up_hi, up_lo = _df_pair((n + 2, m + 2), gen, 0.5)
+    up_hi[0, :] = -0.0
+    up_lo[:, 0] = -0.0
+    up_hi[:, -1] = 0.0
+    up_hi[5:9, 5:9] = torch.tensor([[0.0, -0.0] * 2] * 4)
+    _k7_words_equal((up_hi, up_lo), (u_hi, u_lo), c)
+
+
+@pytest.mark.parametrize("side", [2048, 8192, 12288])
+def test_bratu_residual_df_at_cell_sides_on_card(cuda_device, side):
+    """The benchmark's sides: the 2048² served and 8192² states padded with
+    zero ghosts (``residual_scaled_df``), and a 12288² block with nonzero
+    ghosts as ``halo.exchange_2d`` hands them over (the sharded cell's
+    block), at λ = 6 near the solution's scale."""
+    gen = torch.Generator(device=cuda_device).manual_seed(side)
+    u = _df_pair((side, side), gen, 0.3)
+    if side == 12288:
+        up = _df_pair((side + 2, side + 2), gen, 0.3)
+    else:
+        up = tuple(torch.nn.functional.pad(w, (1, 1, 1, 1)) for w in u)
+    _k7_words_equal(up, u, 6.0 / (24576 + 1 if side == 12288 else side + 1) ** 2)
+    del u, up
+    torch.cuda.empty_cache()
+
+
+def test_exported_2048_flagship_calls_k7_on_card(cuda_device, tmp_path):
+    """The 2048² flagship (λ = 5, f32 CG, DST built once, df32 acceptance)
+    exported, saved, loaded and called on the card: the loaded program
+    launches K7 once an acceptance residual (outers + 1), returns 6 / 7,
+    and its state equals the live solve's on the eager df32 chain (the
+    acceptance as it was before K7) bit for bit."""
+    from newtonkrylov_tpu_torch.ops.stencil import pad_dirichlet
+    from newtonkrylov_tpu_torch.utils import serving
+
+    n = 2048
+    p = tb.default_config(n, lam=5.0)
+    c = float(p.dx) * float(p.dx) * float(p.lam)
+    u0 = tb.initial_guess(n, dtype=torch.float32, device=cuda_device).double()
+
+    def eager_df(u, q):
+        up = (pad_dirichlet(u.hi), pad_dirichlet(u.lo))
+        return df32.DF(*tk.bratu_residual_df_xla(*up, u.hi, u.lo, c))
+
+    def solve(u, residual_df):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled, u, p, algo="cg", tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=residual_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    tk.reset_launch_counts()
+    u_eager, outer_e, inner_e = solve(u0, eager_df)
+    assert tk.LAUNCHES["bratu_residual_df"] == 0
+    ep = serving.export_solver(lambda u: solve(u, tb.residual_scaled_df), (u0,))
+    loaded = serving.load_exported(serving.save_exported(
+        ep, str(tmp_path / "flagship2048.pt2")))
+    tk.reset_launch_counts()
+    u, outer, inner = loaded.call(u0)
+    torch.cuda.synchronize()
+    assert (int(outer), int(inner)) == (int(outer_e), int(inner_e)) == (6, 7)
+    assert tk.LAUNCHES["bratu_residual_df"] == int(outer) + 1
+    assert torch.equal(u, u_eager)
 
 
 def test_df32_selfcheck_on_card(cuda_device):

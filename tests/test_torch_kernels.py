@@ -6,7 +6,8 @@ On the CPU each custom op runs its plain PyTorch version, so these tests hold
 the plain versions (and the op dispatch around them) against the Pallas
 kernels, in float64 with atol 1e-12 as the JAX kernel tests use.  The CUDA
 kernels themselves are held against the plain versions on the card by
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py.  K7 (bratu_residual_df), which has no Pallas
+counterpart, is held here to the eager df32 chain it replaces on the card.
 """
 
 from pathlib import Path
@@ -19,6 +20,7 @@ import torch
 
 from newtonkrylov_tpu.kernels import stencil2d as jk
 from newtonkrylov_tpu.problems import bratu2d as jb
+from newtonkrylov_tpu_torch import df32
 from newtonkrylov_tpu_torch.kernels import stencil2d as tk
 from newtonkrylov_tpu_torch.problems import bratu2d as tb
 from newtonkrylov_tpu_torch.utils import convert
@@ -131,18 +133,24 @@ def test_no_launch_counted_on_cpu():
     tk.stencil_jvp_chain(vt, vt, n, 3, 0.125)
     tk.stencil_chain_probe(vt, vt, n, 2)
     tk.chebyshev_apply(vt, vt, torch.tensor([-4.0, 3.0, 1.0], dtype=F64), n, 2)
+    w = torch.ones((n + 2, n + 2), dtype=torch.float32)
+    tk.bratu_residual_df(w, w, w[1:-1, 1:-1], w[1:-1, 1:-1], 1e-3)
     assert tk.LAUNCHES == dict.fromkeys(
         ["stencil_jvp", "bratu_residual", "stencil_jvp_chain",
-         "stencil_chain_probe", "chebyshev_apply"], 0)
+         "stencil_chain_probe", "chebyshev_apply", "bratu_residual_df"], 0)
 
 
-@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual"])
+@pytest.mark.parametrize("op", ["stencil_jvp", "bratu_residual",
+                                "bratu_residual_df"])
 def test_custom_op_registration(op):
     """Schema, fake (meta) implementation and tracing of each custom op pass
-    torch.library.opcheck — what torch.func.linearize relies on."""
+    torch.library.opcheck — what torch.func.linearize and an export rely
+    on."""
     n = 16
     _, vt = _wrap_both(_rand(n, 9))
-    args = (vt, vt.abs(), n) if op == "stencil_jvp" else (vt, n, 1e-3)
+    args = {"stencil_jvp": (vt, vt.abs(), n), "bratu_residual": (vt, n, 1e-3),
+            "bratu_residual_df": (*_df_words((n + 2, 12), 9),
+                                  *_df_words((n, 10), 19), 1e-3)}[op]
     result = torch.library.opcheck(getattr(tk, op), args)
     assert set(result.values()) == {"SUCCESS"}
 
@@ -168,6 +176,132 @@ def test_ops_reject_other_devices():
     v = torch.zeros((n + 8, 128), dtype=F64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tk._on_cpu(v)
+
+
+# -- K7, the df32 Bratu acceptance residual ------------------------------------
+#
+# On the CPU the op is the eager df32 chain, held here to the JAX package's
+# residual_scaled_df_padded bit for bit; tests/test_torch_cuda.py holds the
+# kernel to that chain on the card.
+
+
+def _df_words(shape, seed, scale=1.0):
+    """A df32 pair (hi, lo) of float32 words from random float64 values."""
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return tuple(df32.df_from_f64(torch.from_numpy(x)))
+
+
+def _jax_df(words):
+    from newtonkrylov_tpu import df32 as jd
+
+    return jd.DF(*(jnp.asarray(w.numpy()) for w in words))
+
+
+def _assert_words_equal(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      w.view(np.uint32))
+
+
+@pytest.mark.parametrize("c", [6.0 / 17 ** 2, -0.75], ids=["c>0", "c<0"])
+@pytest.mark.parametrize("shape", [(16, 16), (7, 5), (1, 9), (9, 1), (13, 130)])
+def test_bratu_residual_df_cpu_is_the_eager_chain(shape, c):
+    """On CPU tensors K7 returns the words of the JAX package's df32 chain
+    (``residual_scaled_df_padded``) bit for bit, whatever the interior (not
+    the padded block's centre), and so do the residuals that call it; no
+    launch is counted."""
+    n, m = shape
+    up = df32.DF(*_df_words((n + 2, m + 2), n * m, 0.5))
+    u = df32.DF(*_df_words((n, m), n + m, 0.5))
+    p = tb.Params(dx=1.0, lam=c)
+    pj = jb.Params(dx=1.0, lam=c)
+    want = jb.residual_scaled_df_padded(_jax_df(up), _jax_df(u), pj)
+    tk.reset_launch_counts()
+    _assert_words_equal(tk.bratu_residual_df(*up, *u, c), want)
+    _assert_words_equal(tb.residual_scaled_df_padded(up, u, p), want)
+    _assert_words_equal(tb.residual_scaled_df(u, p),
+                        jb.residual_scaled_df(_jax_df(u), pj))
+    assert tk.LAUNCHES["bratu_residual_df"] == 0
+
+
+def test_bratu_residual_df_fake_shapes_and_make_fx():
+    """The fake gives the interior's shape and float32 for both words, and a
+    make_fx trace of the df32 residual holds one K7 call."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    n, m = 6, 11
+    with FakeTensorMode():
+        up = torch.empty((n + 2, m + 2), dtype=torch.float32)
+        u = torch.empty((n, m), dtype=torch.float32)
+        hi, lo = tk.bratu_residual_df(up, up, u, u, 0.5)
+    for w in (hi, lo):
+        assert tuple(w.shape) == (n, m) and w.dtype == torch.float32
+    p = tb.default_config(n, lam=6.0)
+    gm = make_fx(lambda h, l: tuple(tb.residual_scaled_df(df32.DF(h, l), p)),
+                 tracing_mode="fake")(*_df_words((n, n), 3))
+    calls = [x for x in gm.graph.nodes
+             if x.target is torch.ops.newtonkrylov_tpu_torch.bratu_residual_df.default]
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("case", ["padded shape", "lo shape", "one-d", "empty",
+                                  "float64", "devices", "c = 0"])
+def test_bratu_residual_df_rejects_bad_inputs(case):
+    n, m = 5, 7
+    up_hi, up_lo = _df_words((n + 2, m + 2), 1)
+    u_hi, u_lo = _df_words((n, m), 2)
+    c = 0.5
+    if case == "padded shape":
+        up_hi, up_lo = up_hi[:-1], up_lo[:-1]
+    elif case == "lo shape":
+        u_lo = u_lo[:, :-1]
+    elif case == "one-d":
+        up_hi, up_lo, u_hi, u_lo = (w.reshape(-1) for w in (up_hi, up_lo, u_hi, u_lo))
+    elif case == "empty":
+        up_hi, up_lo, u_hi, u_lo = (w[:, :0] for w in (up_hi, up_lo, u_hi, u_lo))
+    elif case == "float64":
+        u_lo = u_lo.double()
+    elif case == "devices":
+        u_hi = u_hi.to("meta")
+    else:
+        c = 0.0
+    with pytest.raises(ValueError, match="bratu_residual_df|nonzero"):
+        tk.bratu_residual_df(up_hi, up_lo, u_hi, u_lo, c)
+
+
+def test_exported_df32_solve_calls_k7(tmp_path):
+    """A CPU torch.export of the df32 Bratu flagship at 16² holds K7 in its
+    loop bodies, and the loaded program returns the live solve bit for bit."""
+    import newtonkrylov_tpu_torch as nkt
+    from newtonkrylov_tpu_torch.fftprec import fft_poisson
+    from newtonkrylov_tpu_torch.utils import serving
+
+    n = 16
+    p = tb.default_config(n, lam=6.0)
+    u0 = tb.initial_guess(n, dtype=F64, device="cpu")
+
+    def fn(u):
+        u, info = nkt.newton_krylov_jit(
+            tb.residual_scaled, u, p, algo="cg", tol_rel=1e-8,
+            krylov_dtype=torch.float32, residual_df=tb.residual_scaled_df,
+            max_niter=20, M=fft_poisson(precision="high"),
+            precond_refresh="once")
+        return u, info.stats.outer_iterations, info.stats.inner_iterations
+
+    live = fn(u0)
+    ep = serving.export_solver(fn, (u0,))
+    op = torch.ops.newtonkrylov_tpu_torch.bratu_residual_df.default
+    calls = sum(x.target is op for g in ep.graph_module.modules()
+                if isinstance(g, torch.fx.GraphModule) for x in g.graph.nodes)
+    assert calls >= 2  # the initial residual and the outer loop's
+    loaded = serving.load_exported(serving.save_exported(
+        ep, str(tmp_path / "df32.pt2")))
+    u, outer, inner = loaded.call(u0)
+    assert (int(outer), int(inner)) == (live[1], live[2])
+    assert torch.equal(u, live[0])
 
 
 # -- the chained kernels K3, K4, K5 -------------------------------------------
